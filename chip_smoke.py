@@ -2,23 +2,35 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, saturator corpus scoring
-(``juicy_tpu_torch.parallel.corpus.run_corpus``), at full width: 4096 clips
-of 94 blocks of 512 stereo samples at 48 kHz, preset "Amber Heat", inputs made
-on the card from a seed. Phases, each of which raises on failure:
+Drives the port's two corpus paths at full width: saturator and texture
+corpus scoring (``juicy_tpu_torch.parallel.corpus.run_corpus``), 4096 clips
+of 94 blocks of 512 stereo samples at 48 kHz, inputs made on the card from a
+seed. Phases, each of which raises on failure:
 
-1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-2. build the CUDA kernels from ``juicy_tpu_torch/csrc`` (nvcc);
-3. the saturator stage kernel against its plain PyTorch version on the card,
-   two consecutive blocks at B = 4096, N = 512: audio residual <= -120 dBFS,
-   onset counts and cooldowns equal, scores within 1e-4, other metrics within
-   1e-5; both times;
-4. ``run_corpus`` at full width: exactly one kernel launch per block, finite
-   output, scores in [0, 100], and the first 256 clips against
-   ``use_kernel="never"`` (plain ``batched_run`` on the card) at <= -100 dBFS
-   with last-block scores within 1e-3; the warm wall time and rate.
+1.  the card's name and power limit (nvidia-smi), torch and CUDA versions;
+2.  build the CUDA kernels from ``juicy_tpu_torch/csrc`` (one nvcc per
+    source, all started together);
+3.  the saturator stage kernel against its plain PyTorch version on the
+    card, two consecutive blocks at B = 4096, N = 512, preset "Amber Heat":
+    audio residual <= -120 dBFS, onset counts and cooldowns equal, scores
+    within 1e-4, other metrics within 1e-5; both times;
+3b. the texture stage kernel against its plain version, the same way, for
+    each material 0..4 (gel, metal, wood, plastic, flesh) at the defaults,
+    with every state leaf (the LCG state and the waveguide ring included)
+    bit-equal; the kernel's time per block alone and with the layout
+    permutes, the whole step's and the plain version's;
+4.  ``run_corpus`` saturator at full width: exactly one kernel launch per
+    block, finite output, scores in [0, 100]; the warm wall time and rate;
+    the timed run's first 256 clips against ``use_kernel="never"`` (plain
+    ``batched_run`` on the card) at <= -100 dBFS with last-block scores
+    within 1e-3;
+4b. ``run_corpus`` texture at full width for gel, metal and wood, checked
+    the same way.
 
-The line before the last is a JSON summary of the kernels; the last line is
+Before each corpus path every launch count is set to 0, and read after it.
+The line before the last is a JSON summary of the kernels, with each one's
+bound (the least time the card could take for the same work, from the bytes
+and operations this run's shapes need); the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -40,6 +52,27 @@ CHANNELS = 2
 BATCH = 4096
 CHECK_CLIPS = 256
 PRESET = "Amber Heat"
+MATERIALS = ("gel", "metal", "wood", "plastic", "flesh")
+CORPUS_MATERIALS = (0, 1, 2)      # bench.py's texture rows
+REFERENCE_MATERIAL = 1            # the texture row of the kernels line
+
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 FLOP/s
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# f32 operations per sample that the loop bodies need, counted from the CUDA
+# sources: each add, subtract, multiply, divide, min, max, rint and compare
+# counts one; abs, selects and integer work (the LCG, index and conversion
+# arithmetic) count nothing, nor do terms of the constants alone, which the
+# compiler hoists. tanh32 is 29, cos32 21. The analyzer lane (lane.cuh
+# lane_step, per clip-sample, run twice), the saturator per channel-sample
+# (saturator_stage.cu), texture's front, back and noise per channel-sample
+# (texture.cuh) and each material's step (wood and plastic with the ring
+# tap and its interpolation).
+LANE_OPS = 42
+SAT_OPS = 40
+TEX_OPS = 84
+TEX_MAT_OPS = (46, 140, 47, 47, 57)
+TEX_NMAT = (2, 8, 9, 9, 4)
 
 
 def make_batch(batch, channels, t, device, seed=7):
@@ -75,6 +108,59 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def bound(nbytes, ops):
+    """(bound ms, what sets it): the larger of bytes over the memory rate
+    and operations over the f32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def saturator_bound(b, c, n):
+    """Audio in and out, tone state in and out, lane in, two lanes out."""
+    nbytes = 4 * (2 * b * c * n + 2 * b * c + 5 * b + 2 * 15 * b)
+    return bound(nbytes, b * n * (2 * LANE_OPS + c * SAT_OPS))
+
+
+def texture_bound(b, c, n, mode, delay):
+    """Audio, state and lanes once each way. Wood and plastic also read the
+    ring rows this block reads before it writes them (ceil(delay) + 1 of
+    them, at most n + 1) and write n rows, plus the write indices."""
+    nbytes = 4 * (2 * b * c * n + 2 * (9 + TEX_NMAT[mode]) * b * c + 2 * b
+                  + 5 * b + 2 * 15 * b)
+    if mode in (2, 3):
+        rows_in = min(math.ceil(delay) + 1, n + 1)
+        nbytes += 4 * b * c * (rows_in + n) + 2 * 4 * b * c
+    return bound(nbytes, b * n * (2 * LANE_OPS + c * (TEX_OPS
+                                                     + TEX_MAT_OPS[mode])))
+
+
+def reset_launches():
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+
+    sk.saturator_stage_step.launches = 0
+    sk.texture_stage_step.launches = 0
+
+
+def check_corpus_outputs(out, clips, last):
+    if tuple(out.shape) != tuple(clips.shape) or not bool(torch.isfinite(out).all()):
+        raise AssertionError("corpus output is not finite or has the wrong shape")
+    for key, v in last.items():
+        if tuple(v.shape) != (clips.shape[0],) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"metric {key} is not finite [B]")
+    for key in ("score", "pre_score", "post_score"):
+        if not bool(((last[key] >= 0) & (last[key] <= 100)).all()):
+            raise AssertionError(f"{key} outside [0, 100]")
+
+
+def check_metrics(tag, m_k, m_p):
+    for key in m_k:
+        tol = 1e-4 if key.endswith("score") else 1e-5
+        d = max_diff(m_k[key], m_p[key])
+        if d > tol:
+            raise AssertionError(f"{tag}: metric {key} off by {d}")
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -91,12 +177,13 @@ def phase_build():
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s -> {_build.library_path()}")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"ptxas: {line.strip()}")
 
 
 def phase_kernel_vs_plain(device, plugin, params):
-    """The stage kernel against its plain version, two blocks, state carried."""
+    """The saturator stage kernel against its plain version, two blocks,
+    state carried."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
 
     b, n = BATCH, BLOCK
@@ -125,11 +212,7 @@ def phase_kernel_vs_plain(device, plugin, params):
         if not torch.equal(st_k["analyzer"]["onset_cooldown"],
                            st_p["analyzer"]["onset_cooldown"]):
             raise AssertionError(f"block {i}: onset_cooldown differs")
-        for key in m_k:
-            tol = 1e-4 if key.endswith("score") else 1e-5
-            d = max_diff(m_k[key], m_p[key])
-            if d > tol:
-                raise AssertionError(f"block {i}: metric {key} off by {d}")
+        check_metrics(f"saturator block {i}", m_k, m_p)
         print(f"kernel vs plain block {i}: audio {db:.1f} dBFS, tone "
               f"{max_diff(st_k['dsp']['tone_state'], st_p['dsp']['tone_state']):.3g}, "
               f"score {max_diff(m_k['score'], m_p['score']):.3g}")
@@ -145,52 +228,150 @@ def phase_kernel_vs_plain(device, plugin, params):
     plain_ms = cuda_ms(lambda: sk._sat_lanes_plain(blk, tone0, lane0, scalars), 1)
     plain_step_ms = cuda_ms(lambda: sk.saturator_stage_step_plain(
         params, st0, blk, plugin.sr), 1)
+    bound_ms, bound_by = saturator_bound(b, CHANNELS, n)
     print(f"per block at B={b}, N={n}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms "
           f"(lanes with layout); whole step: kernel route {step_ms:.4f} ms, "
-          f"plain route {plain_step_ms:.2f} ms")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+          f"plain route {plain_step_ms:.2f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def phase_corpus(device, plugin, params):
+def texture_kernel_vs_plain(device, mode, x):
+    """One material: kernel and plain version over two blocks, each from its
+    own copy of the state; then the times per block."""
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+    from juicy_tpu_torch.models import texture as tex
+    from juicy_tpu_torch.runtime.plugin import Plugin
+
+    b, n = BATCH, BLOCK
+    plugin = Plugin("texture", SR, CHANNELS, n).with_static(material=mode)
+    params = plugin.full_params(plugin.default_params())
+    st0 = plugin.init_state((b,), device)
+    st_k, st_p = ({"analyzer": st0["analyzer"],
+                   "dsp": sk.texture_kernel_state(st0["dsp"], mode)}
+                  for _ in range(2))
+    worst = 0.0
+    for i in range(2):
+        blk = x[..., i * n:(i + 1) * n]
+        lanes_k = sk._tex_lanes_cuda(blk, st_k["dsp"], sk.pack_lane(
+            st_k["analyzer"], b), params, SR, mode)
+        lanes_p = sk._tex_lanes_plain(blk, st_p["dsp"], sk.pack_lane(
+            st_p["analyzer"], b), params, SR, mode)
+        (out_k, dsp_k, *raw_k), (out_p, dsp_p, *raw_p) = lanes_k, lanes_p
+        tag = f"texture {MATERIALS[mode]} block {i}"
+        db = residual_dbfs(out_k, out_p)
+        worst = max(worst, max_diff(out_k, out_p))
+        if db > -120.0:
+            raise AssertionError(f"{tag}: kernel vs plain {db:.1f} dBFS")
+        for key, v in dsp_p.items():
+            if not torch.equal(dsp_k[key], v):
+                raise AssertionError(f"{tag}: state {key} differs")
+        for j in (0, 2):       # fin row 4 = cooldown, acc row 1 = onsets
+            if not torch.equal(raw_k[j][4], raw_p[j][4]):
+                raise AssertionError(f"{tag}: lane cooldowns differ")
+            if not torch.equal(raw_k[j + 1][1], raw_p[j + 1][1]):
+                raise AssertionError(f"{tag}: onset counts differ")
+        an_k, m_k, _ = sk.metrics_from_lanes(*raw_k, st_k["analyzer"], n, SR)
+        an_p, m_p, _ = sk.metrics_from_lanes(*raw_p, st_p["analyzer"], n, SR)
+        check_metrics(tag, m_k, m_p)
+        st_k, st_p = {"analyzer": an_k, "dsp": dsp_k}, {"analyzer": an_p,
+                                                       "dsp": dsp_p}
+        print(f"{tag}: audio {db:.1f} dBFS, state bit-equal, onsets "
+              f"{int(raw_k[1][1].sum())}, score "
+              f"{max_diff(m_k['score'], m_p['score']):.3g}")
+
+    blk = x[..., :n]
+    lane0 = sk.pack_lane(st_k["analyzer"], b)
+    bufs = sk.tex_cuda_buffers(blk, st_k["dsp"], lane0, mode)
+    ms = cuda_ms(lambda: sk.tex_cuda_launch(bufs, params, SR, mode), 20)
+    layout_ms = cuda_ms(lambda: sk._tex_lanes_cuda(blk, st_k["dsp"], lane0,
+                                                   params, SR, mode), 20)
+    step_ms = cuda_ms(lambda: sk.texture_stage_step(params, st_k, blk, SR), 20)
+    plain_ms = cuda_ms(lambda: sk._tex_lanes_plain(blk, st_p["dsp"], lane0,
+                                                   params, SR, mode), 1)
+    delay = float(tex.material_consts(mode, tex.common_consts(
+        params, SR, mode)[1], SR, tex.waveguide_size(SR))["delay_samp"]) \
+        if mode in tex.WAVE_MODES else 0.0
+    bound_ms, bound_by = texture_bound(b, CHANNELS, n, mode, delay)
+    print(f"texture {MATERIALS[mode]} per block at B={b}, N={n}: kernel "
+          f"{ms:.4f} ms alone, {layout_ms:.4f} ms with layout, whole step "
+          f"{step_ms:.4f} ms, plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return {"max_abs_err": worst, "ms": ms, "layout_ms": layout_ms,
+            "step_ms": step_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def phase_texture_kernel_vs_plain(device):
+    x = make_batch(BATCH, CHANNELS, 2 * BLOCK, device, seed=13)
+    return {MATERIALS[mode]: texture_kernel_vs_plain(device, mode, x)
+            for mode in range(5)}
+
+
+def corpus_run(tag, plugin, params, clips, step):
+    """One corpus path at full width: a warm-up, then the timed run with
+    every launch count set to 0 before it and read after it; `step`'s kernel
+    must have launched once per block and no other. The timed run's first
+    CHECK_CLIPS clips are then held against ``use_kernel="never"``."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
     from juicy_tpu_torch.parallel.corpus import run_corpus
 
-    t = NUM_BLOCKS * BLOCK
-    clips = make_batch(BATCH, CHANNELS, t, device)
     run_corpus(plugin, params, clips)            # warm-up
     torch.cuda.synchronize()
 
-    sk.saturator_stage_step.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out, last, agg = run_corpus(plugin, params, clips)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = sk.saturator_stage_step.launches
-    if launches != NUM_BLOCKS:
-        raise AssertionError(f"{launches} kernel launches for {NUM_BLOCKS} blocks")
-    if tuple(out.shape) != tuple(clips.shape) or not bool(torch.isfinite(out).all()):
-        raise AssertionError("corpus output is not finite or has the wrong shape")
-    for key, v in last.items():
-        if tuple(v.shape) != (BATCH,) or not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"metric {key} is not finite [B]")
-    for key in ("score", "pre_score", "post_score"):
-        if not bool(((last[key] >= 0) & (last[key] <= 100)).all()):
-            raise AssertionError(f"{key} outside [0, 100]")
-    audio_s = BATCH * t / SR
-    print(f"run_corpus B={BATCH} T={t}: {wall:.4f} s warm, "
-          f"{audio_s / wall:.1f} audio-s/s, mean score "
+    launches = step.launches
+    other = (sk.saturator_stage_step.launches + sk.texture_stage_step.launches
+             - launches)
+    if launches != NUM_BLOCKS or other:
+        raise AssertionError(f"{tag}: {launches} kernel launches (and {other} "
+                             f"of another kernel) for {NUM_BLOCKS} blocks")
+    check_corpus_outputs(out, clips, last)
+    t = clips.shape[-1]
+    print(f"run_corpus {tag} B={BATCH} T={t}: {wall:.4f} s warm, "
+          f"{BATCH * t / SR / wall:.1f} audio-s/s, mean score "
           f"{float(agg['score']['mean']):.4f}")
 
-    sub = clips[:CHECK_CLIPS].contiguous()
     t0 = time.perf_counter()
-    out_n, last_n, _ = run_corpus(plugin, params, sub, use_kernel="never")
+    out_n, last_n, _ = run_corpus(plugin, params, clips[:CHECK_CLIPS],
+                                  use_kernel="never")
     torch.cuda.synchronize()
     db = residual_dbfs(out[:CHECK_CLIPS], out_n)
     ds = max_diff(last["score"][:CHECK_CLIPS], last_n["score"])
-    print(f"kernel path vs never on {CHECK_CLIPS} clips: audio {db:.1f} dBFS, "
-          f"last-block score {ds:.3g} ({time.perf_counter() - t0:.1f} s)")
+    print(f"{tag} kernel path vs never on {CHECK_CLIPS} clips: audio "
+          f"{db:.1f} dBFS, last-block score {ds:.3g} "
+          f"({time.perf_counter() - t0:.1f} s)")
     if db > -100.0 or ds > 1e-3:
-        raise AssertionError("kernel corpus path disagrees with batched_run")
+        raise AssertionError(f"{tag}: kernel corpus path disagrees with "
+                             f"batched_run")
+    return launches
+
+
+def phase_corpus(device, plugin, params):
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+
+    clips = make_batch(BATCH, CHANNELS, NUM_BLOCKS * BLOCK, device)
+    return corpus_run("saturator", plugin, params, clips,
+                      sk.saturator_stage_step)
+
+
+def phase_texture_corpus(device):
+    """gel, metal and wood at full width; each run read on its own."""
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+    from juicy_tpu_torch.runtime.plugin import Plugin
+
+    clips = make_batch(BATCH, CHANNELS, NUM_BLOCKS * BLOCK, device, seed=17)
+    launches = {}
+    for mode in CORPUS_MATERIALS:
+        plugin = Plugin("texture", SR, CHANNELS, BLOCK).with_static(material=mode)
+        launches[MATERIALS[mode]] = corpus_run(
+            f"texture {MATERIALS[mode]}", plugin, plugin.default_params(),
+            clips, sk.texture_stage_step)
     return launches
 
 
@@ -205,15 +386,32 @@ def main():
     phase_build()
     plugin = Plugin("saturator", SR, CHANNELS, BLOCK)
     params = plugin.preset(PRESET)
-    timing = phase_kernel_vs_plain(device, plugin, params)
-    launches = phase_corpus(device, plugin, params)
+    sat_timing = phase_kernel_vs_plain(device, plugin, params)
+    tex_timing = phase_texture_kernel_vs_plain(device)
+    sat_launches = phase_corpus(device, plugin, params)
+    tex_launches = phase_texture_corpus(device)
+    ref = tex_timing[MATERIALS[REFERENCE_MATERIAL]]
     print(json.dumps({"kernels": [{
         "name": "saturator_stage",
         "route": "cuda",
         "source": "juicy_tpu_torch/csrc/saturator_stage.cu",
         "replaces": "juicy_tpu/kernels/stage_kernels.py:1226",
-        "launches": launches,
-        **timing}]}))
+        "launches": sat_launches,
+        **sat_timing,
+    }, {
+        "name": "texture_stage",
+        "route": "cuda",
+        "source": "juicy_tpu_torch/csrc/texture_stage.cu",
+        "replaces": "juicy_tpu/kernels/stage_kernels.py:1055",
+        "launches": sum(tex_launches.values()),
+        "max_abs_err": max(v["max_abs_err"] for v in tex_timing.values()),
+        "ms": ref["ms"], "plain_ms": ref["plain_ms"],
+        "bound_ms": ref["bound_ms"], "bound_by": ref["bound_by"],
+        "library_ms": None,
+        "timed_material": MATERIALS[REFERENCE_MATERIAL],
+        "launches_by_material": tex_launches,
+        "by_material": tex_timing,
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

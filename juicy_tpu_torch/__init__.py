@@ -5,18 +5,22 @@ module paths and function names, on float32 torch tensors, and runs its
 kernels as CUDA C++ written for Hopper (``csrc/``, built at first use by
 ``kernels/_build.py``). It imports neither JAX nor ``juicy_tpu``.
 
-Ported so far (ROADMAP.md lists the rest): the drift-pinned numerics, the
-analyzer, ``Plugin`` with the saturator, the saturator stage kernel and
-``run_corpus``.
+Ported so far (ROADMAP.md lists the rest): the drift-pinned numerics and the
+LCG noise, the analyzer, ``Plugin`` with the saturator and texture (static
+material), the saturator and texture stage kernels and ``run_corpus``.
+Every entry point runs on the CUDA card unless the caller passes another
+``device`` (``runtime/device.py``); ``device="cpu"`` is the plain route.
 """
 
 from juicy_tpu_torch.analyzer import analyze, analyzer_init
-from juicy_tpu_torch.kernels.stage_kernels import (saturator_stage_step,
-                                                   saturator_stage_step_plain)
+from juicy_tpu_torch.kernels.stage_kernels import (
+    saturator_stage_step, saturator_stage_step_plain, texture_stage_step,
+    texture_stage_step_plain)
 from juicy_tpu_torch.models import get_processor
 from juicy_tpu_torch.parallel.corpus import corpus_metrics, run_corpus
 from juicy_tpu_torch.runtime.plugin import Plugin
 
 __all__ = ["Plugin", "analyze", "analyzer_init", "corpus_metrics",
            "get_processor", "run_corpus", "saturator_stage_step",
-           "saturator_stage_step_plain"]
+           "saturator_stage_step_plain", "texture_stage_step",
+           "texture_stage_step_plain"]

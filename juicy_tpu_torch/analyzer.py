@@ -16,6 +16,7 @@ import torch
 
 from juicy_tpu_torch.ops.precise import F32, div_const, f32
 from juicy_tpu_torch.ops.scan_utils import onepole_lowpass
+from juicy_tpu_torch.runtime.device import resolve_device
 from juicy_tpu_torch.utils.convert import jlimit, onepole_coeff, tau_coeff
 
 Metrics = Dict[str, torch.Tensor]
@@ -25,7 +26,9 @@ STATE_FIELDS = ("short_env", "long_env", "low_state", "high_state",
 
 
 def analyzer_init(batch_shape=(), device=None) -> Dict[str, torch.Tensor]:
-    """Fresh analyzer state (prepare()/reset()); the cooldown is int32."""
+    """Fresh analyzer state (prepare()/reset()); the cooldown is int32.
+    `device` None is the card (runtime/device.py)."""
+    device = resolve_device(device)
     st = {k: torch.zeros(batch_shape, dtype=F32, device=device)
           for k in STATE_FIELDS}
     st["onset_cooldown"] = torch.zeros(batch_shape, dtype=torch.int32,

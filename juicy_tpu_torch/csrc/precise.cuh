@@ -26,6 +26,24 @@ __device__ __forceinline__ float exp2_poly(float r) {
   return acc;
 }
 
+// cos(z) for |z| <= 2.9: Taylor degree 20, even Horner in u = z*z; each
+// coefficient is the f32 rounding of (-1)^k / (2k)!.
+__device__ __forceinline__ float cos32(float z) {
+  const float u = z * z;
+  float acc = 0x1.e542bap-62f;
+  acc = acc * u + -0x1.682786p-53f;
+  acc = acc * u + 0x1.ae7f3ep-45f;
+  acc = acc * u + -0x1.93974ap-37f;
+  acc = acc * u + 0x1.1eed8ep-29f;
+  acc = acc * u + -0x1.27e4fcp-22f;
+  acc = acc * u + 0x1.a01a02p-16f;
+  acc = acc * u + -0x1.6c16c2p-10f;
+  acc = acc * u + 0x1.555556p-5f;
+  acc = acc * u + -0.5f;
+  acc = acc * u + 1.0f;
+  return acc;
+}
+
 // 2^x for |x| <= 125 (clipped outside).
 __device__ __forceinline__ float exp2_32(float x) {
   x = fminf(fmaxf(x, -125.0f), 125.0f);

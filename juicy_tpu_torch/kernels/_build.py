@@ -2,8 +2,9 @@
 and load them with ctypes.
 
 The library is a plain C interface (no PyTorch headers), so a build takes
-seconds. It lands in ``juicy_tpu_torch/build/`` (git-ignored), named by a
-hash of the sources and flags: a changed source rebuilds, an unchanged one
+seconds: each source compiles in its own nvcc process, all started
+together, and one more links them. It lands in ``juicy_tpu_torch/build/``
+(git-ignored), named by a hash of the sources and flags: a changed source rebuilds, an unchanged one
 loads what is there. A file lock serializes builds across the processes of a
 parallel test run. Nothing is built or loaded at import time.
 """
@@ -26,9 +27,10 @@ BUILD_DIR = _PKG / "build"
 # -fmad=false: nvcc would otherwise contract a*b + c into one FMA, and the
 # analyzer's envelope update feeds a threshold comparison where one ulp can
 # flip an onset. No fast math: every transcendental is in precise.cuh.
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-fmad=false",
+                 "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 
 def _sources():
@@ -37,7 +39,7 @@ def _sources():
 
 def source_hash() -> str:
     """Hash of every source file's name and bytes, and the flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for p in _sources():
         h.update(p.name.encode() + b"\0" + p.read_bytes() + b"\0")
     return h.hexdigest()[:16]
@@ -59,25 +61,48 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile every ``csrc/*.cu`` into one shared library unless the
-    library for the current sources exists. Returns its path; the nvcc
-    output (ptxas register counts included) is kept beside it as ``.log``."""
+    library for the current sources exists: one nvcc per source, all
+    started together, then one link. Returns its path; the nvcc output
+    (ptxas register counts included) is kept beside it as ``.log``."""
     so = library_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not so.exists():
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", str(tmp),
-                   *(str(p) for p in _sources() if p.suffix == ".cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            so.with_suffix(".log").write_text(
-                " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed with code {proc.returncode}:"
-                                   f"\n{proc.stderr}")
-            os.replace(tmp, so)
+            _compile_and_link(find_nvcc(), so)
     return so
+
+
+def _compile_and_link(nvcc: str, so: Path):
+    tag = f"{so.stem}.{os.getpid()}"
+    jobs = []
+    for src in (p for p in _sources() if p.suffix == ".cu"):
+        obj = BUILD_DIR / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-I", str(SRC_DIR), "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for cmd, _obj, proc in jobs:
+        out, err = proc.communicate()
+        log += [" ".join(cmd), out, err]
+        if proc.returncode:
+            failed.append(f"{cmd[-1]}: code {proc.returncode}\n{err}")
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    if not failed:
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp),
+               *(str(obj) for _cmd, obj, _p in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log += [" ".join(cmd), proc.stdout, proc.stderr]
+        if proc.returncode:
+            failed.append(f"link: code {proc.returncode}\n{proc.stderr}")
+    for _cmd, obj, _p in jobs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    os.replace(tmp, so)
 
 
 def build_log() -> str:
@@ -93,6 +118,10 @@ def load_library() -> ctypes.CDLL:
     lib.juicy_saturator_stage.argtypes = (
         [ptr] * 9 + [i32] * 3 + [f32] * 12 + [ptr])
     lib.juicy_saturator_stage.restype = i32
+    u32 = ctypes.c_uint32
+    lib.juicy_texture_stage.argtypes = (
+        [ptr] * 16 + [i32] * 5 + [u32] * 2 + [ptr, i32, ptr])
+    lib.juicy_texture_stage.restype = i32
     lib.juicy_cuda_error_string.argtypes = [i32]
     lib.juicy_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,14 +1,15 @@
 """Full-stage kernels: pre-analyze + DSP + post-analyze of one block in one
 launch. PyTorch port of juicy_tpu/kernels/stage_kernels.py (the analyzer
-lane and the saturator).
+lane, the saturator and texture).
 
-``saturator_stage_step(params, state, block, sr)`` keeps the JAX contract:
-``block`` [B, C, N] float32, state leaves with a leading [B], returns
-``(out [B, C, N], state', metrics)``. For a CUDA tensor it launches the
-hand-written kernel in ``csrc/saturator_stage.cu``; for a CPU tensor it runs
-``saturator_stage_step_plain``, the same computation as a serial per-sample
-loop over [B] / [B, C] tensors in the kernel's op order. It never falls back
-from one to the other.
+``saturator_stage_step(params, state, block, sr)`` and
+``texture_stage_step`` keep the JAX contract: ``block`` [B, C, N] float32,
+state leaves with a leading [B], returns ``(out [B, C, N], state',
+metrics)``. For a CUDA tensor each launches its hand-written kernel
+(``csrc/saturator_stage.cu``, ``csrc/texture_stage.cu``); for a CPU tensor
+it runs its ``*_plain`` version, the same computation as a serial
+per-sample loop over [B] / [B, C] tensors in the kernel's op order. Any
+other device raises; neither falls back from one route to the other.
 
 Inside the block, per clip: the pre-lane (15 analyzer variables) and the
 saturator run in one sample loop; the pre-lane's values are stored; the lane
@@ -21,12 +22,16 @@ run on them in plain torch (``finalize_lane``), once per block.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
+import numpy as np
 import torch
 
 from juicy_tpu_torch import analyzer as _an
 from juicy_tpu_torch.models import saturator as _sat
+from juicy_tpu_torch.models import texture as _tex
+from juicy_tpu_torch.ops import noise as _noise
 from juicy_tpu_torch.ops.precise import F32, f32, tanh32
 
 # lane variables kept across the pre → post reset, in ``fin`` row order
@@ -35,6 +40,7 @@ _LANE_FIN = (0, 1, 5, 6, 2)     # s_env, l_env, low, high, cooldown
 _LANE_ACC = (3, 4, 7, 8, 9, 10, 11, 12, 13, 14)
 
 
+@functools.lru_cache(maxsize=16)
 def _lane_consts(sr: float):
     """The analyzer's seven lane constants, the cooldown as a float."""
     k = _an.lane_consts(sr)
@@ -243,3 +249,317 @@ def saturator_stage_step(params, state, block, sr: float):
 
 #: kernel launches made by saturator_stage_step (CUDA tensors only)
 saturator_stage_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Texture full-stage step
+#
+# The texture state enters the step in *kernel form* (texture_kernel_state):
+# the waveguide ring of wood and plastic time-major [L, C, B], updated in
+# place block after block, and the LCG state as int32 bits. Convert once per
+# corpus, not per block (the ring is 126 MB at B = 4096); texture_ring_state
+# converts back. The other leaves keep the state form.
+# ---------------------------------------------------------------------------
+
+_TEX_COMMON = ("tail_shape", "texture", "mix", "out_gain", "decay",
+               "low_boost", "split_low", "split_high", "env_atk", "env_rel",
+               "wet_atk", "wet_rel", "dc_r", "auto_gain_base", "in_trim",
+               "mat_trim")
+_TEX_DSP_KEYS = ("env", "lp", "hp", "noise_hp", "tail", "wet_env",
+                 "dc_in", "dc_out", "protect_gain")
+_NM = _tex.NMODES
+
+
+def tex_param_list(params, sr: float, mode: int):
+    """The texture kernel's constants after the 7 lane constants, as f32
+    Python floats in the order csrc/texture.cuh reads them: _TEX_COMMON,
+    then the material's (gel: omega, kspring; metal: freqs, pole radii, a2,
+    gains, the 0.45·sr cap, theta_scale; wood/plastic: a1, a2, gains,
+    delay, damp, waveguide mix, excitation scales, injection (b0, b1), five
+    output mixes; flesh: k_a, k_b, c_a, c_b, k_couple). Unlike the TPU
+    kernel's list it holds no write index: the kernel reads each clip's."""
+    L = _tex.waveguide_size(sr)
+    kc, mp = _tex.common_consts(params, sr, mode)
+    mc = _tex.material_consts(mode, mp, sr, L)
+    pv = [kc[key] for key in _TEX_COMMON]
+    if mode == 0:
+        pv += [mc["omega"], mc["k"]]
+    elif mode == 1:
+        freqs, rs = _tex.metal_poles(mc, sr)
+        pv += [*freqs, *rs, *(-rs * rs), *mc["gains"], f32(0.45 * sr),
+               _tex.theta_scale(sr)]
+    elif mode in _tex.WAVE_MODES:
+        pv += [*mc["a1"], *mc["a2"], *mc["gains"], mc["delay_samp"],
+               mc["damp"], *mc["wg_mix"], *mc["exc_scale"], *mc["exc_b"],
+               *mc["out_mix"]]
+    else:
+        pv += [mc["k_a"], mc["k_b"], mc["c_a"], mc["c_b"], mc["k_couple"]]
+    return [f32(v) for v in pv]
+
+
+def _params_key(params):
+    return tuple(sorted((k, float(v)) for k, v in params.items()))
+
+
+@functools.lru_cache(maxsize=64)
+def _tex_scalars_cached(key, sr: float, mode: int):
+    vals = list(_lane_consts(sr)) + tex_param_list(dict(key), sr, mode)
+    arr = np.asarray(vals, dtype=np.float32)
+    arr.setflags(write=False)
+    return arr
+
+
+def _tex_scalars(params, sr: float, mode: int) -> np.ndarray:
+    """Lane and texture constants as one float32 array, worked out once per
+    (params, sr, material) and cached: only the audio changes per block."""
+    return _tex_scalars_cached(_params_key(params), float(sr), mode)
+
+
+def tex_mat_leaves(dsp, mode: int):
+    """Material-state leaves ([B, C] each) in the kernel's order."""
+    if mode == 0:
+        return [dsp["spring_pos"], dsp["spring_vel"]]
+    if mode == 4:
+        return [dsp["flesh_pos_a"], dsp["flesh_vel_a"],
+                dsp["flesh_pos_b"], dsp["flesh_vel_b"]]
+    leaves = [dsp["modal_y1"][..., k] for k in range(_NM)] + \
+             [dsp["modal_y2"][..., k] for k in range(_NM)]
+    if mode in _tex.WAVE_MODES:
+        leaves.append(dsp["prev_wave"])
+    return leaves
+
+
+def _tex_mat_dict(leaves, mode: int):
+    """The inverse of tex_mat_leaves: state dict entries."""
+    if mode == 0:
+        return {"spring_pos": leaves[0], "spring_vel": leaves[1]}
+    if mode == 4:
+        return dict(zip(("flesh_pos_a", "flesh_vel_a", "flesh_pos_b",
+                         "flesh_vel_b"), leaves))
+    d = {"modal_y1": torch.stack(leaves[:_NM], dim=-1),
+         "modal_y2": torch.stack(leaves[_NM:2 * _NM], dim=-1)}
+    if mode in _tex.WAVE_MODES:
+        d["prev_wave"] = leaves[2 * _NM]
+    return d
+
+
+def texture_kernel_state(dsp, mode: int):
+    """Texture state (as from ``Plugin.init_state``) -> kernel form: ``rng``
+    as int32 bits and, for wood and plastic, the ring [B, C, L] as a new
+    time-major [L, C, B] tensor. The TPU kernel reads one write index for
+    the whole batch (``wave_idx.reshape(-1)[0]``); that precondition is
+    checked here, once per corpus, and a state that breaks it raises."""
+    st = dict(dsp)
+    st["rng"] = _noise.u32_to_i32_bits(dsp["rng"])
+    if mode in _tex.WAVE_MODES:
+        widx, ring = dsp["wave_idx"], dsp["waveguide"]
+        w0 = int(widx.reshape(-1)[0])
+        if not (0 <= w0 < ring.shape[-1] and bool(torch.all(widx == w0))):
+            raise ValueError("texture kernel: wave_idx differs between clips "
+                             "or channels, or lies outside the ring; the "
+                             "stage kernel needs one ring write index for "
+                             "the whole batch")
+        st["waveguide"] = ring.permute(2, 1, 0).contiguous()
+    return st
+
+
+def texture_ring_state(dsp, mode: int):
+    """Kernel form -> texture state: the inverse of texture_kernel_state,
+    exact."""
+    st = dict(dsp)
+    st["rng"] = _noise.i32_bits_to_u32(dsp["rng"])
+    if mode in _tex.WAVE_MODES:
+        st["waveguide"] = dsp["waveguide"].permute(2, 1, 0).contiguous()
+    return st
+
+
+class KernelRing:
+    """The kernel-form ring [L, C, B] with the clips' write indices
+    [B, C], read and written in place as the kernel does (same interface as
+    models/texture.py::StateRing)."""
+
+    def __init__(self, ring: torch.Tensor, widx: torch.Tensor):
+        self.wg, self.widx, self.L = ring, widx, ring.shape[0]
+        b, c = widx.shape
+        self._c = torch.arange(c, device=ring.device)[None, :]
+        self._b = torch.arange(b, device=ring.device)[:, None]
+
+    def read(self, delay):
+        i0, i1, frac = _tex.ring_tap(self.widx, delay, self.L)
+        v0 = self.wg[i0.long(), self._c, self._b]
+        v1 = self.wg[i1.long(), self._c, self._b]
+        return v0 + frac * (v1 - v0)
+
+    def write(self, value: torch.Tensor):
+        self.wg[self.widx.long(), self._c, self._b] = value
+        nxt = self.widx + 1
+        self.widx = torch.where(nxt >= self.L, nxt - self.L, nxt)
+
+
+def _tex_lanes_plain(x, dsp, lane0, params, sr: float, mode: int):
+    """Plain PyTorch version of the kernel: the per-sample body of
+    models/texture.py on [B, C] tensors, the LCG stepped per sample as the
+    kernel steps it. x [B, C, N], dsp in kernel form (the ring updated in
+    place), lane0 [5, B] -> (out [B, C, N], dsp', pre fin, pre acc, post
+    fin, post acc)."""
+    c, n = x.shape[1], x.shape[2]
+    consts, extract, mat_step, pack = _tex.block_consts(
+        params, sr, mode, _tex.waveguide_size(sr), x.device, ring=KernelRing)
+    step = _tex.make_sample_step(consts, mat_step)
+    carry = _tex.extract_scan_carry(dsp, extract)
+    rng = _noise.i32_bits_to_u32(dsp["rng"])
+    draws = [rng, _noise.lcg_advance(rng, n)][:c]
+    lane_k = _lane_consts(sr)
+    lane = _lane_from_fin(lane0)
+    out = torch.empty_like(x)
+    for t in range(n):
+        d = x[:, :, t]
+        lane = _lane_step(lane, d[:, 0], d[:, c - 1], lane_k)
+        draws = [_noise.lcg_step(r) for r in draws]
+        w = torch.stack([_noise.white_from_bits(r) for r in draws], dim=1)
+        carry, out[:, :, t] = step(carry, d, w)
+    pre_fin, pre_acc = _store_lane(lane)
+    lane = _lane_reset(lane)
+    for t in range(n):
+        lane = _lane_step(lane, out[:, 0, t], out[:, c - 1, t], lane_k)
+    post_fin, post_acc = _store_lane(lane)
+    new_dsp = _tex.pack_scan_carry(carry, dsp, pack)
+    new_dsp["rng"] = _noise.u32_to_i32_bits(draws[-1])
+    return out, new_dsp, pre_fin, pre_acc, post_fin, post_acc
+
+
+def tex_cuda_buffers(x, dsp, lane0, mode: int):
+    """The kernel's inputs in its layout and its freshly allocated outputs,
+    as a dict of tensors (the layout permutes of one block)."""
+    b = x.shape[0]
+    wave = mode in _tex.WAVE_MODES
+    bufs = dict(
+        x=x.permute(2, 1, 0).contiguous(),                  # [N, C, B]
+        dsp_in=torch.stack([dsp[k] for k in _TEX_DSP_KEYS]),  # [9, B, C]
+        mat_in=torch.stack(tex_mat_leaves(dsp, mode)),        # [M, B, C]
+        rng_in=dsp["rng"].contiguous(),
+        widx_in=dsp["wave_idx"].contiguous(),
+        lane_in=lane0.contiguous(),
+        ring=dsp["waveguide"] if wave else None)
+    bufs.update(
+        out=torch.empty_like(bufs["x"]),
+        dsp_out=torch.empty_like(bufs["dsp_in"]),
+        mat_out=torch.empty_like(bufs["mat_in"]),
+        rng_out=torch.empty_like(bufs["rng_in"]),
+        widx_out=(torch.empty_like(bufs["widx_in"]) if wave
+                  else bufs["widx_in"]),
+        **{name: torch.empty((rows, b), dtype=F32, device=x.device)
+           for name, rows in (("pre_fin", 5), ("pre_acc", 10),
+                              ("post_fin", 5), ("post_acc", 10))})
+    return bufs
+
+
+_TEX_ARGS = ("x", "dsp_in", "mat_in", "rng_in", "widx_in", "lane_in", "ring",
+             "out", "dsp_out", "mat_out", "rng_out", "widx_out", "pre_fin",
+             "pre_acc", "post_fin", "post_acc")
+
+
+def tex_cuda_launch(bufs, params, sr: float, mode: int):
+    """Launch ``juicy_texture_stage`` (csrc/texture_stage.cu) on prepared
+    buffers, on the current stream of their device; raises on a refused
+    launch."""
+    from juicy_tpu_torch.kernels import _build
+
+    lib = _build.load_library()
+    n, c, b = bufs["x"].shape
+    consts = _tex_scalars(params, sr, mode)
+    jump_a, jump_b = _noise.jump(n)
+    ptrs = [None if bufs[k] is None else bufs[k].data_ptr() for k in _TEX_ARGS]
+    device = bufs["x"].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.juicy_texture_stage(
+            *ptrs, b, c, n, _tex.waveguide_size(sr), mode, jump_a, jump_b,
+            consts.ctypes.data, consts.size, stream)
+    if err != 0:
+        raise RuntimeError(f"juicy_texture_stage launch failed: CUDA error "
+                           f"{err} ({_build.error_string(lib, err)})")
+    texture_stage_step.launches += 1
+
+
+def _tex_lanes_cuda(x, dsp, lane0, params, sr: float, mode: int):
+    """The kernel route: layout, launch, unpack. Same contract as
+    _tex_lanes_plain."""
+    bufs = tex_cuda_buffers(x, dsp, lane0, mode)
+    tex_cuda_launch(bufs, params, sr, mode)
+    new_dsp = dict(dsp)
+    new_dsp.update(zip(_TEX_DSP_KEYS, bufs["dsp_out"].unbind(0)))
+    new_dsp.update(_tex_mat_dict(bufs["mat_out"].unbind(0), mode))
+    new_dsp["rng"] = bufs["rng_out"]
+    new_dsp["wave_idx"] = bufs["widx_out"]
+    return (bufs["out"].permute(2, 1, 0), new_dsp, bufs["pre_fin"],
+            bufs["pre_acc"], bufs["post_fin"], bufs["post_acc"])
+
+
+def _tex_stage(lanes_fn, params, state, block, sr: float):
+    if block.dtype != F32 or block.ndim != 3:
+        raise ValueError(f"expected float32 block [B, C, N], got "
+                         f"{block.dtype} {tuple(block.shape)}")
+    b, c, n = block.shape
+    if c not in (1, 2) or n == 0 or b == 0:
+        raise ValueError(f"unsupported block shape {tuple(block.shape)}")
+    mode = _tex.require_static(params)
+    for key, v in params.items():
+        if torch.as_tensor(v).ndim:
+            raise ValueError(f"the stage kernel takes one setting per call; "
+                             f"param {key!r} is batched")
+    dsp = state["dsp"]
+    if dsp["rng"].dtype != torch.int32:
+        raise ValueError("texture state is not in kernel form: convert it "
+                         "once with texture_kernel_state")
+    L = _tex.waveguide_size(sr)
+    wave = mode in _tex.WAVE_MODES
+    ring = dsp["waveguide"]
+    want_ring = (L, c, b) if wave else (b, c, L)
+    if tuple(ring.shape) != want_ring or (wave and not (
+            ring.is_contiguous() and ring.dtype == F32
+            and ring.device == block.device)):
+        raise ValueError(f"waveguide is {ring.dtype} {tuple(ring.shape)}, "
+                         f"expected contiguous float32 {want_ring} on the "
+                         f"block's device (kernel form)")
+    leaves = {k: dsp[k] for k in _TEX_DSP_KEYS}
+    leaves.update(enumerate(tex_mat_leaves(dsp, mode)))
+    for key, t in leaves.items():
+        if tuple(t.shape) != (b, c) or t.dtype != F32 or t.device != block.device:
+            raise ValueError(f"texture state {key!r} must be float32 [B, C] "
+                             f"on the block's device")
+    for key, shape in (("rng", (b,)), ("wave_idx", (b, c))):
+        t = dsp[key]
+        if (tuple(t.shape) != shape or t.dtype != torch.int32
+                or t.device != block.device):
+            raise ValueError(f"texture state {key!r} must be int32 {shape} "
+                             f"on the block's device")
+    lane0 = pack_lane(state["analyzer"], b)
+    if lane0.device != block.device:
+        raise ValueError("analyzer state must be on the block's device")
+    out, new_dsp, pre_fin, pre_acc, post_fin, post_acc = lanes_fn(
+        block, dsp, lane0, params, sr, mode)
+    post_state, m, _pre = metrics_from_lanes(pre_fin, pre_acc, post_fin,
+                                             post_acc, state["analyzer"], n, sr)
+    return out, {"analyzer": post_state, "dsp": new_dsp}, m
+
+
+def texture_stage_step_plain(params, state, block, sr: float):
+    """The texture stage step as plain PyTorch, on any device."""
+    return _tex_stage(_tex_lanes_plain, params, state, block, sr)
+
+
+def texture_stage_step(params, state, block, sr: float):
+    """Full texture step (pre-analyze → DSP → post-analyze) in one kernel
+    launch for a CUDA `block`; the plain version for a CPU `block`.
+    `params` hold a static ``material``; the texture state is in kernel form
+    (texture_kernel_state) and its ring is updated in place."""
+    if block.device.type == "cuda":
+        return _tex_stage(_tex_lanes_cuda, params, state, block, sr)
+    if block.device.type == "cpu":
+        return texture_stage_step_plain(params, state, block, sr)
+    raise ValueError(f"no texture stage kernel for device {block.device}")
+
+
+#: kernel launches made by texture_stage_step (CUDA tensors only)
+texture_stage_step.launches = 0

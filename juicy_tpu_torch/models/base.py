@@ -28,6 +28,7 @@ class ParamSpec:
     hi: float
     default: float
     readonly: bool = False          # read-only metric outputs (skip in UIs)
+    choices: Tuple[str, ...] = ()   # non-empty => AudioParameterChoice analog
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +41,9 @@ class ProcessorDef:
     presets: Tuple[Tuple[str, Dict[str, float]], ...]
     init: Callable[..., Any]        # (sr, channels, batch_shape, device) -> carry
     process: Callable[..., Any]     # (params, carry, block, sr) -> (out, carry)
+    # Parameters that select code paths (texture's material index); the
+    # Plugin holds them as Python ints (Plugin.with_static), not tensors.
+    static_params: Tuple[str, ...] = ()
 
     def default_params(self) -> Dict[str, torch.Tensor]:
         """Defaults, then preset 0 applied on top (the reference

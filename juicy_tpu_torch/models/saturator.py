@@ -13,6 +13,7 @@ import torch
 from juicy_tpu_torch.models import base
 from juicy_tpu_torch.ops.precise import F32, as_f32, tanh32
 from juicy_tpu_torch.ops.scan_utils import onepole_lowpass
+from juicy_tpu_torch.runtime.device import resolve_device
 from juicy_tpu_torch.utils.convert import db_to_gain, jmap, onepole_coeff
 
 PARAMS = (
@@ -34,10 +35,11 @@ PRESETS = (
 
 
 def init(sr: float, channels: int, batch_shape=(), device=None):
-    """Per-channel tone filter state, zeroed: [*batch_shape, C]."""
+    """Per-channel tone filter state, zeroed: [*batch_shape, C] on `device`
+    (None is the card)."""
     del sr
     return {"tone_state": torch.zeros((*batch_shape, channels), dtype=F32,
-                                      device=device)}
+                                      device=resolve_device(device))}
 
 
 def sat_consts(params, sr):

@@ -51,6 +51,7 @@ def rdiv_const(c: float, x: torch.Tensor) -> torch.Tensor:
 
 # Taylor coefficients in float32 (exact rationals rounded once).
 _EXP_C = [f32(1.0 / math.factorial(k)) for k in range(19)]          # deg 18
+_COS_C = [f32((-1.0) ** k / math.factorial(2 * k)) for k in range(11)]  # deg 20
 _LOG2E = f32(1.4426950408889634)
 _SQRT2 = f32(math.sqrt(2.0))
 # 2^r = exp(r·ln2), Taylor degree 8 on r ∈ [−0.5, 0.5]
@@ -87,6 +88,12 @@ def _clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
 def exp32(x):
     """exp(x) for x ∈ [−2.5, 0], f32 Horner."""
     return _horner(_EXP_C, as_f32(x))
+
+
+def cos32(z):
+    """cos(z) for |z| ≤ 2.9, f32 even Horner in u = z²."""
+    z = as_f32(z)
+    return _horner(_COS_C, z * z)
 
 
 def exp2_32(x):

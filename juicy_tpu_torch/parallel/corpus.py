@@ -1,19 +1,21 @@
 """Corpus-scale batch runner, PyTorch port of juicy_tpu/parallel/corpus.py
 (``run_corpus`` and ``corpus_metrics``).
 
-A corpus [B, C, T] streams block by block through one plugin on the device
-its tensor lies on; the result is the audio, each clip's final-block metrics
-and their corpus mean/min/max. The JAX runner's mesh has no counterpart on
-one GPU, and the 1024-clip tile alignment does not apply: the kernel masks
-the ragged edge of the batch.
+A corpus [B, C, T] streams block by block through one plugin on the card
+(or on the device the caller names); the result is the audio, each clip's
+final-block metrics and their corpus mean/min/max. The JAX runner's mesh has
+no counterpart on one GPU, and the 1024-clip tile alignment does not apply:
+the kernels mask the ragged edge of the batch.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
+from juicy_tpu_torch.runtime.device import resolve_device
 from juicy_tpu_torch.runtime.plugin import Plugin
 
 
@@ -25,23 +27,32 @@ def corpus_metrics(per_clip_metrics: Dict[str, torch.Tensor]
 
 
 def _stage_kernel_step(plugin: Plugin):
-    """The plugin's full-stage kernel step, or None when it has none."""
+    """The plugin's full-stage kernel step, or None when it has none (the
+    saturator, and texture with a static material, as in the JAX runner)."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
 
-    return {"saturator": sk.saturator_stage_step}.get(plugin.defn.name)
+    return {"saturator": sk.saturator_stage_step,
+            "texture": sk.texture_stage_step}.get(plugin.defn.name)
 
 
-def run_corpus(plugin: Plugin, params, clips: torch.Tensor,
-               use_kernel: str = "auto", automation=None):
-    """Process a [B, C, T] float32 corpus on the device of `clips`.
+def run_corpus(plugin: Plugin, params, clips, use_kernel: str = "auto",
+               automation=None, device=None):
+    """Process a [B, C, T] float32 corpus (a tensor or a numpy array) on
+    `device`: the card when None, which must then exist; ``"cpu"`` runs the
+    plain PyTorch route.
 
     `use_kernel`: "auto" runs the plugin's full-stage kernel step when it has
-    one (the saturator), which launches the CUDA kernel for a CUDA corpus and
-    runs its plain version for a CPU corpus; "never" runs
-    ``Plugin.batched_run``; "always" raises unless the CUDA kernel can run.
+    one (the saturator; texture with a static material), which launches the
+    CUDA kernel for a CUDA corpus and runs its plain version for a CPU
+    corpus; "never" runs ``Plugin.batched_run``; "always" raises unless the
+    CUDA kernel can run. Texture with a per-clip material raises
+    NotImplementedError (its traced path is not ported).
 
     Returns (out [B, C, T], per-clip final-block metrics, corpus aggregates).
     """
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+    from juicy_tpu_torch.models import texture as _tex
+
     if use_kernel not in ("auto", "never", "always"):
         raise ValueError(f"use_kernel must be auto, never or always; got "
                          f"{use_kernel!r}")
@@ -49,9 +60,16 @@ def run_corpus(plugin: Plugin, params, clips: torch.Tensor,
         raise NotImplementedError(
             "run_corpus(automation=) is not ported yet (ROADMAP.md, Queue 1 "
             "item 9: run_corpus(automation=))")
+    device = resolve_device(device)
+    if isinstance(clips, np.ndarray):
+        clips = torch.from_numpy(clips)
     if clips.dtype != torch.float32 or clips.ndim != 3:
         raise ValueError(f"expected float32 clips [B, C, T], got "
                          f"{clips.dtype} {tuple(clips.shape)}")
+    clips = clips.to(device)
+    is_texture = plugin.defn.name == "texture"
+    mode = _tex.require_static(plugin.full_params(params)) if is_texture \
+        else None
     kstep = None if use_kernel == "never" else _stage_kernel_step(plugin)
     if use_kernel == "always" and (kstep is None or not clips.is_cuda):
         raise ValueError(
@@ -64,11 +82,15 @@ def run_corpus(plugin: Plugin, params, clips: torch.Tensor,
         last = {k: v[-1] for k, v in metrics.items()}
         return out, last, corpus_metrics(last)
 
+    p = plugin.full_params(params)
+    if is_texture:
+        # the ring goes to kernel form once per corpus, not once per block
+        states["dsp"] = sk.texture_kernel_state(states["dsp"], mode)
     n = plugin.block_size
     nb = plugin.num_blocks(clips)
     out = torch.empty_like(clips)
     for i in range(nb):
         sl = slice(i * n, (i + 1) * n)
-        out[..., sl], states, last = kstep(params, states, clips[..., sl],
+        out[..., sl], states, last = kstep(p, states, clips[..., sl],
                                            plugin.sr)
     return out, last, corpus_metrics(last)

@@ -6,6 +6,7 @@ tensors. PyTorch port of juicy_tpu/runtime/plugin.py (``Plugin`` only).
   =====================  =======================================
   createPluginFilter()    ``Plugin(name, sr, channels, block)``
   prepareToPlay           ``plugin.init_state(batch_shape, device)``
+  (static params)         ``plugin.with_static(material=2)``
   processBlock            ``plugin.step(params, state, block)``
   setCurrentProgram       ``plugin.preset(name_or_index)``
   =====================  =======================================
@@ -25,6 +26,7 @@ import torch
 
 from juicy_tpu_torch.analyzer import analyze, analyzer_init
 from juicy_tpu_torch.models.base import ProcessorDef, get_processor
+from juicy_tpu_torch.runtime.device import resolve_device
 
 
 def _default_finalize(pre, post):
@@ -39,31 +41,53 @@ class Plugin:
     """One processor instance bound to (sample rate, channels, block size)."""
 
     def __init__(self, defn: Union[str, ProcessorDef], sr: float = 48000.0,
-                 channels: int = 2, block_size: int = 512):
+                 channels: int = 2, block_size: int = 512,
+                 static: Optional[Dict[str, int]] = None):
         if isinstance(defn, str):
             defn = get_processor(defn)
         self.defn = defn
         self.sr = float(sr)
         self.channels = int(channels)
         self.block_size = int(block_size)
+        # static (code-path-selecting) params, e.g. texture's material
+        self._static: Dict[str, int] = dict(static or {})
+
+    def with_static(self, **static) -> "Plugin":
+        """A new Plugin bound to updated static params, e.g.
+        ``plug.with_static(material=2)``."""
+        merged = dict(self._static)
+        merged.update({k: int(v) for k, v in static.items()})
+        return Plugin(self.defn, self.sr, self.channels, self.block_size,
+                      static=merged)
 
     def init_state(self, batch_shape=(), device=None) -> Dict[str, Any]:
         """Fresh analyzer and DSP state, each leaf [*batch_shape, ...] on
-        `device` (the CPU when None)."""
+        `device` (None is the card, runtime/device.py)."""
+        device = resolve_device(device)
         return {
             "analyzer": analyzer_init(batch_shape, device),
             "dsp": self.defn.init(self.sr, self.channels, batch_shape, device),
         }
 
     def default_params(self) -> Dict[str, torch.Tensor]:
-        return self.defn.default_params()
+        return self._split_static(self.defn.default_params())[0]
 
     def preset(self, preset) -> Dict[str, torch.Tensor]:
-        return self.defn.preset_params(preset)
+        return self._split_static(self.defn.preset_params(preset))[0]
+
+    def _split_static(self, params):
+        """(params without the static ones, the static ones as ints). Pure:
+        the split is not bound to this instance (use with_static)."""
+        rest = dict(params)
+        static = {key: int(rest.pop(key)) for key in self.defn.static_params
+                  if key in rest}
+        return rest, static
 
     def full_params(self, params):
-        """The params the DSP reads (the saturator has no static ones)."""
-        return dict(params)
+        """The params the DSP reads: `params` plus the static ones."""
+        merged = dict(params)
+        merged.update(self._static)
+        return merged
 
     def step(self, params, state, block):
         """One processBlock: pre-analyze → DSP → post-analyze → metrics."""

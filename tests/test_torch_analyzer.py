@@ -42,7 +42,7 @@ def _run_both(clip, n_blocks=None):
     """Stream `clip` [..., C, T] block by block through both analyzers."""
     batch = clip.shape[:-2]
     j_state = jax.tree.map(lambda v: jnp.broadcast_to(v, batch), j_init())
-    t_state = t_init(batch)
+    t_state = t_init(batch, "cpu")
     n_blocks = n_blocks or clip.shape[-1] // BLOCK
     for k in range(n_blocks):
         blk = clip[..., k * BLOCK:(k + 1) * BLOCK]
@@ -83,7 +83,7 @@ def test_torch_analyzer_state_carry(rng):
     clip = make_clip(rng, channels=2, samples=BLOCK * 4)
     j_state = j_init()
     j_state, _ = _j_analyze(j_state, jnp.asarray(clip[:, :BLOCK]))
-    t_state = to_torch(jax.device_get(j_state))
+    t_state = to_torch(jax.device_get(j_state), "cpu")
     for k in range(1, 4):
         blk = clip[:, k * BLOCK:(k + 1) * BLOCK]
         j_state, j_m = _j_analyze(j_state, jnp.asarray(blk))
@@ -112,7 +112,7 @@ def test_torch_analyzer_lane_form(rng):
     j_state = jax.tree.map(lambda v: jnp.broadcast_to(v, (4,)), j_init())
     j_state, j_m = j_lane(j_state, jnp.asarray(clips))
 
-    t_state = t_init((4,))
+    t_state = t_init((4,), "cpu")
     blk = torch.from_numpy(clips)
     c = ta.lane_init(t_state, (4,))
     body = ta.make_lane_body(SR)

@@ -6,8 +6,9 @@ JAX; on a machine without it, run it as
     JUICY_TEST_TPU=1 python -m pytest tests/test_torch_cuda.py -m cuda -q
 
 (the variable keeps tests/conftest.py from setting up JAX's CPU devices).
-The batch is ragged (not a multiple of the kernel's 128-thread block) and
-mono and stereo both run, which chip_smoke.py does not cover. The inputs
+The batch is ragged (not a multiple of the kernels' thread blocks) and mono
+and stereo both run, which chip_smoke.py does not cover; texture runs all
+five materials. The inputs
 are made here, from a seed, so that the file needs nothing of the JAX
 test harness.
 """
@@ -79,6 +80,72 @@ def test_run_corpus_always_on_card(cuda_device):
     before = sk.saturator_stage_step.launches
     out_k, last_k, _ = run_corpus(plug, params, clips, use_kernel="always")
     assert sk.saturator_stage_step.launches == before + 3
+    out_n, last_n, _ = run_corpus(plug, params, clips, use_kernel="never")
+    assert torch.equal(out_k, out_n)
+    assert float((last_k["score"] - last_n["score"]).abs().max()) <= 1e-4
+
+
+# material -> the state leaves only that material's model moves
+_TEX_OWN = {0: ("spring_pos", "spring_vel"), 1: ("modal_y1", "modal_y2"),
+            2: ("modal_y1", "prev_wave", "waveguide", "wave_idx"),
+            3: ("modal_y1", "prev_wave", "waveguide", "wave_idx"),
+            4: ("flesh_pos_a", "flesh_vel_b")}
+_TEX_MAT_LEAVES = ("spring_pos", "modal_y1", "prev_wave", "waveguide",
+                   "flesh_pos_a")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("material", [0, 1, 2, 3, 4])
+def test_texture_stage_kernel_matches_plain(material, channels, cuda_device):
+    """Two streamed blocks per material: audio and every state leaf
+    bit-equal (the ring included), onset cooldowns equal, metrics within
+    1e-5 (scores 1e-4); the material's own state moved, the others not."""
+    plug = Plugin("texture", SR, channels, N).with_static(material=material)
+    params = plug.full_params(plug.default_params())
+    clips = _clips(10 + material, channels, 2, cuda_device)
+    st0 = plug.init_state((B,), cuda_device)
+    st_k, st_p = ({"analyzer": st0["analyzer"],
+                   "dsp": sk.texture_kernel_state(st0["dsp"], material)}
+                  for _ in range(2))
+    before = sk.texture_stage_step.launches
+    for k in range(2):
+        blk = clips[..., k * N:(k + 1) * N]
+        out_k, st_k, m_k = sk.texture_stage_step(params, st_k, blk, SR)
+        out_p, st_p, m_p = sk.texture_stage_step_plain(params, st_p, blk, SR)
+        torch.cuda.synchronize()
+        assert out_k.is_cuda and out_k.shape == blk.shape
+        assert torch.equal(out_k, out_p)
+        for key, v in st_p["dsp"].items():
+            assert torch.equal(st_k["dsp"][key], v), key
+        assert torch.equal(st_k["analyzer"]["onset_cooldown"],
+                           st_p["analyzer"]["onset_cooldown"])
+        for key in m_k:
+            tol = 1e-4 if key.endswith("score") else 1e-5
+            assert float((m_k[key] - m_p[key]).abs().max()) <= tol, key
+    assert sk.texture_stage_step.launches == before + 2
+    final = sk.texture_ring_state(st_k["dsp"], material)
+    for key in _TEX_MAT_LEAVES:
+        moved = not torch.equal(final[key], st0["dsp"][key])
+        assert moved == (key in _TEX_OWN[material]), key
+    assert torch.equal(final["rng"], _lcg_advance_twice(st0["dsp"]["rng"],
+                                                        channels))
+
+
+def _lcg_advance_twice(rng, channels):
+    from juicy_tpu_torch.ops.noise import lcg_advance
+    return lcg_advance(rng, 2 * channels * N)
+
+
+@pytest.mark.cuda
+def test_texture_run_corpus_always_on_card(cuda_device):
+    """Wood through run_corpus: one launch per block, equal to "never"."""
+    plug = Plugin("texture", SR, 2, N).with_static(material=2)
+    params = plug.default_params()
+    clips = _clips(4, 2, 3, cuda_device)
+    before = sk.texture_stage_step.launches
+    out_k, last_k, _ = run_corpus(plug, params, clips, use_kernel="always")
+    assert sk.texture_stage_step.launches == before + 3
     out_n, last_n, _ = run_corpus(plug, params, clips, use_kernel="never")
     assert torch.equal(out_k, out_n)
     assert float((last_k["score"] - last_n["score"]).abs().max()) <= 1e-4

@@ -124,7 +124,11 @@ def test_serial_scans_match_float32_loop():
 
 
 def test_port_imports_no_jax():
-    code = ("import juicy_tpu_torch, sys; "
+    code = ("import importlib, pkgutil, sys, juicy_tpu_torch; "
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "juicy_tpu_torch.__path__, 'juicy_tpu_torch.')]; "
+            "assert 'juicy_tpu_torch.models.texture' in sys.modules; "
+            "assert 'juicy_tpu_torch.ops.noise' in sys.modules; "
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules); "
             "assert not any(m == 'juicy_tpu' or m.startswith('juicy_tpu.') "
             "for m in sys.modules)")
@@ -132,3 +136,21 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_cos32_bit_identical_over_metal_thetas():
+    """cos32 on the metal bank's angles: f·theta_scale(sr) for f up to the
+    0.45·sr cap, at 44.1, 48 and 96 kHz, plus a sweep of |z| <= 2.9."""
+    import juicy_tpu_torch.models.texture as ttex
+
+    f = np.concatenate([np.linspace(20.0, 21600.0, 20000), [20.0, 320.0,
+                                                            21600.0]])
+    zs = [_grid(-2.9, 2.9, [0.0, 2.9, -2.9, 1.0], 12)]
+    for sr in (44100.0, 48000.0, 96000.0):
+        cap = np.minimum(f, 0.45 * sr).astype(F)
+        zs.append(cap * F(ttex.theta_scale(sr)))
+        assert F(ttex.theta_scale(sr)) == F(F(2.0 * 3.14159265358979323846)
+                                            / F(sr))
+    for z in zs:
+        z = z.astype(F)
+        _assert_bit_equal(tp.cos32(torch.from_numpy(z)), jp.cos32(z))

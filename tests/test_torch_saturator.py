@@ -52,7 +52,7 @@ def test_torch_saturator_preset(preset, channels, rng):
 
     # one clip, block by block through step
     clip = make_clip(rng, channels, 2 * N)
-    j_st, t_st = jplug.init_state(), tplug.init_state()
+    j_st, t_st = jplug.init_state(), tplug.init_state(device="cpu")
     for k in range(2):
         blk = clip[:, k * N:(k + 1) * N]
         j_out, j_st, j_m = jstep(params, j_st, jnp.asarray(blk))
@@ -67,7 +67,7 @@ def test_torch_saturator_preset(preset, channels, rng):
     j_states = jax.vmap(lambda _: jplug.init_state())(jnp.arange(BATCH))
     j_out, j_states, j_ms = jbatched(params, j_states, jnp.asarray(clips))
     t_states = to_torch(jax.device_get(jax.vmap(
-        lambda _: jplug.init_state())(jnp.arange(BATCH))))
+        lambda _: jplug.init_state())(jnp.arange(BATCH))), "cpu")
     t_out, t_states, t_ms = tplug.batched_run(tparams, t_states,
                                               torch.from_numpy(clips))
     assert t_out.shape == clips.shape
@@ -87,15 +87,15 @@ def test_torch_saturator_batched_params_and_run(rng):
     batched = {k: torch.stack([p[k] for p in per]) for k in per[0]}
     clips = torch.from_numpy(np.stack([make_clip(rng, 2, 2 * N)
                                        for _ in names]))
-    out, _st, ms = plug.batched_run(batched, plug.init_state((3,)), clips,
+    out, _st, ms = plug.batched_run(batched, plug.init_state((3,), "cpu"), clips,
                                     params_batched=True)
     for i, p in enumerate(per):
-        out_i, _st_i, ms_i = plug.run(p, plug.init_state(), clips[i])
+        out_i, _st_i, ms_i = plug.run(p, plug.init_state(device="cpu"), clips[i])
         np.testing.assert_array_equal(out[i].numpy(), out_i.numpy())
         np.testing.assert_allclose(ms["score"][:, i].numpy(),
                                    ms_i["score"].numpy(), atol=1e-4)
     with pytest.raises(ValueError):
-        plug.batched_run(per[0], plug.init_state((3,)), clips,
+        plug.batched_run(per[0], plug.init_state((3,), "cpu"), clips,
                          params_batched=True)
     with pytest.raises(ValueError):
-        plug.run(per[0], plug.init_state(), clips[0, :, :N + 1])
+        plug.run(per[0], plug.init_state(device="cpu"), clips[0, :, :N + 1])

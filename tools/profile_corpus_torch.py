@@ -1,0 +1,91 @@
+"""Where the time of the port's corpus scoring goes, on one NVIDIA GPU.
+
+    python3 tools/profile_corpus_torch.py [--plugin texture --material 1]
+
+Runs ``juicy_tpu_torch.parallel.corpus.run_corpus`` at chip_smoke.py's full
+width (4096 stereo clips of 94 blocks of 512 samples at 48 kHz, inputs made
+on the card as there): one warm-up run, one timed run, then one run under
+``torch.profiler``. Prints the card's name and power limit, the timed and
+profiled walls, the profiled run's device busy time (the sum of its
+kernels' times) by kernel name, its count of ``cudaLaunchKernel`` calls, and
+its device idle share: one minus busy over that same run's wall. The
+profiler's own host cost is in that wall, so the share is an upper bound
+for the unprofiled run. Needs a CUDA device; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+from chip_smoke import (BATCH, BLOCK, CHANNELS, NUM_BLOCKS, PRESET,  # noqa: E402
+                        SR, make_batch)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--plugin", choices=("saturator", "texture"),
+                    default="texture")
+    ap.add_argument("--material", type=int, default=1)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_corpus_torch: needs a CUDA device")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from juicy_tpu_torch.parallel.corpus import run_corpus
+    from juicy_tpu_torch.runtime.plugin import Plugin
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+    plugin = Plugin(args.plugin, SR, CHANNELS, BLOCK)
+    if args.plugin == "texture":
+        plugin = plugin.with_static(material=args.material)
+        params = plugin.default_params()
+    else:
+        params = plugin.preset(PRESET)
+    clips = make_batch(BATCH, CHANNELS, NUM_BLOCKS * BLOCK,
+                       torch.device("cuda", 0))
+
+    def run():
+        run_corpus(plugin, params, clips)
+        torch.cuda.synchronize()
+
+    run()                                   # warm-up: build, caches
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        prof_wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    # kernels only: the aten ops that launched them carry the same time
+    device = sorted(((e.key, e.self_device_time_total, e.count)
+                     for e in events if e.device_type == DeviceType.CUDA
+                     and e.self_device_time_total > 0),
+                    key=lambda r: -r[1])
+    busy = sum(t for _k, t, _c in device) / 1e6      # us -> s
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    tag = args.plugin + (f" material {args.material}"
+                         if args.plugin == "texture" else "")
+    print(f"{tag}: B={BATCH} blocks={NUM_BLOCKS}: wall {wall:.4f} s, "
+          f"profiled wall {prof_wall:.4f} s, device busy {busy:.4f} s, "
+          f"cudaLaunchKernel {launches}")
+    for key, t, count in device[:8]:
+        print(f"  {t / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
+    print(f"device idle {100 * (1 - busy / prof_wall):.1f}% of the profiled "
+          f"run's wall")
+
+
+if __name__ == "__main__":
+    main()
