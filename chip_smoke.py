@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's two corpus paths at full width: saturator and texture
-corpus scoring (``juicy_tpu_torch.parallel.corpus.run_corpus``), 4096 clips
-of 94 blocks of 512 stereo samples at 48 kHz, inputs made on the card from a
-seed. Phases, each of which raises on failure:
+Drives the port's corpus paths at full width: punch, saturator, texture and
+motion corpus scoring (``juicy_tpu_torch.parallel.corpus.run_corpus``), 4096
+clips of 94 blocks of 512 stereo samples at 48 kHz, and the seven-stage
+``Chain``; inputs made on the card from a seed. Phases, each of which raises
+on failure:
 
 1.  the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2.  build the CUDA kernels from ``juicy_tpu_torch/csrc`` (one nvcc per
@@ -19,13 +20,27 @@ seed. Phases, each of which raises on failure:
     with every state leaf (the LCG state and the waveguide ring included)
     bit-equal; the kernel's time per block alone and with the layout
     permutes, the whole step's and the plain version's;
+3c. the punch stage kernel against its plain version, two blocks at
+    B = 4096, N = 512, preset "Solar Snap", on an input with a burst every
+    100 ms at a per-clip offset (onsets inside the blocks): audio
+    <= -120 dBFS, every state leaf bit-equal, onset counts and cooldowns
+    equal; the same four times as 3b;
+3d. the motion stage kernel the same way at its defaults, with ``rng`` and
+    ``onset_cooldown`` among the state leaves and pass 1's LCG rolled in
+    most clips;
 4.  ``run_corpus`` saturator at full width: exactly one kernel launch per
     block, finite output, scores in [0, 100]; the warm wall time and rate;
     the timed run's first 256 clips against ``use_kernel="never"`` (plain
     ``batched_run`` on the card) at <= -100 dBFS with last-block scores
     within 1e-3;
 4b. ``run_corpus`` texture at full width for gel, metal and wood, checked
-    the same way.
+    the same way;
+4c. ``run_corpus`` punch ("Solar Snap") and motion (defaults) at full
+    width on the burst input, checked the same way;
+4d. the seven-stage ``Chain`` of bench.py (``Chain.batched_run``) on the
+    card at B = 256, two blocks, against the same call on the CPU: audio
+    <= -100 dBFS, every stage's metrics within 1e-5 of max(1, |value|). It
+    has no kernel of its own yet: this checks the models' device placement.
 
 Before each corpus path every launch count is set to 0, and read after it.
 The line before the last is a JSON summary of the kernels, with each one's
@@ -52,6 +67,11 @@ CHANNELS = 2
 BATCH = 4096
 CHECK_CLIPS = 256
 PRESET = "Amber Heat"
+PUNCH_PRESET = "Solar Snap"
+CHAIN = [("punch", "Solar Snap"), ("saturator", "Amber Heat"),
+         ("texture", None), ("motion", None), ("width", "Prism Arc"),
+         ("cohere", None), ("infer", "Reference Lens")]        # bench.py:41-49
+CHAIN_BATCH = 256
 MATERIALS = ("gel", "metal", "wood", "plastic", "flesh")
 CORPUS_MATERIALS = (0, 1, 2)      # bench.py's texture rows
 REFERENCE_MATERIAL = 1            # the texture row of the kernels line
@@ -67,12 +87,20 @@ F32_OPS_PER_S = 67e12
 # lane_step, per clip-sample, run twice), the saturator per channel-sample
 # (saturator_stage.cu), texture's front, back and noise per channel-sample
 # (texture.cuh) and each material's step (wood and plastic with the ring
-# tap and its interpolation).
+# tap and its interpolation). pow32 is 40 (log2 18, exp2 21, one multiply),
+# sin32 26, exp32_narrow 18. Punch per channel-sample (punch.cuh
+# punch_sample); motion's pass 1 per clip-sample and pass 2 per
+# channel-sample (motion.cuh motion_p1, motion_p2). Left out, as under a
+# thousandth of the work here: motion's three draws on an onset (12 ops, at
+# most one onset per 1920 samples) and the once-per-block terms.
 LANE_OPS = 42
 SAT_OPS = 40
 TEX_OPS = 84
 TEX_MAT_OPS = (46, 140, 47, 47, 57)
 TEX_NMAT = (2, 8, 9, 9, 4)
+PUNCH_OPS = 98
+MOTION_P1_OPS = 10
+MOTION_P2_OPS = 109
 
 
 def make_batch(batch, channels, t, device, seed=7):
@@ -83,6 +111,24 @@ def make_batch(batch, channels, t, device, seed=7):
     tt = torch.arange(t, dtype=torch.float32, device=device)
     x += 0.2 * torch.sin((2 * math.pi * 220.0 / SR) * tt)
     return torch.clamp(x, -0.99, 0.99)
+
+
+def make_clicks(batch, channels, t, device, seed, period=int(SR * 0.1)):
+    """A quiet bed (|mono| < 0.02: a 220 Hz tone and noise) and a decaying
+    900 Hz burst every `period` samples (100 ms, longer than motion's 40 ms
+    cooldown) from a per-clip offset, so that onsets fall inside the blocks.
+    Drawn on the device."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    tt = torch.arange(t, dtype=torch.float32, device=device)
+    offset = torch.randint(0, period, (batch, 1, 1), generator=g,
+                           device=device).float()
+    since = torch.remainder(tt - offset, period)
+    burst = torch.exp(-since / 120.0) * 0.6 * torch.sin(
+        (2 * math.pi * 900.0 / SR) * since)
+    gain = torch.tensor([1.0, 0.9][:channels], device=device)[None, :, None]
+    bed = 0.008 * torch.sin((2 * math.pi * 220.0 / SR) * tt)
+    noise = torch.randn((batch, channels, t), generator=g, device=device)
+    return torch.clamp(bed + gain * burst + 0.002 * noise, -0.99, 0.99)
 
 
 def residual_dbfs(a, b):
@@ -135,11 +181,32 @@ def texture_bound(b, c, n, mode, delay):
                                                      + TEX_MAT_OPS[mode])))
 
 
-def reset_launches():
+def punch_bound(b, c, n):
+    """Audio in and out, the followers in and out, lane in, two lanes out."""
+    nbytes = 4 * (2 * b * c * n + 2 * 2 * b * c + 5 * b + 2 * 15 * b)
+    return bound(nbytes, b * n * (2 * LANE_OPS + c * PUNCH_OPS))
+
+
+def motion_bound(b, c, n):
+    """Audio in and out; the 10 mono leaves, cooldown, rng and 3 channel
+    leaves in and out; lane in, two lanes out."""
+    nbytes = 4 * (2 * b * c * n + 2 * (12 * b + 3 * b * c) + 5 * b
+                  + 2 * 15 * b)
+    return bound(nbytes, b * n * (2 * LANE_OPS + MOTION_P1_OPS
+                                  + c * MOTION_P2_OPS))
+
+
+def stage_steps():
+    """Every stage kernel's wrapper, by name; each counts its launches."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
 
-    sk.saturator_stage_step.launches = 0
-    sk.texture_stage_step.launches = 0
+    return {"punch": sk.punch_stage_step, "saturator": sk.saturator_stage_step,
+            "texture": sk.texture_stage_step, "motion": sk.motion_stage_step}
+
+
+def reset_launches():
+    for step in stage_steps().values():
+        step.launches = 0
 
 
 def check_corpus_outputs(out, clips, last):
@@ -326,8 +393,7 @@ def corpus_run(tag, plugin, params, clips, step):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = step.launches
-    other = (sk.saturator_stage_step.launches + sk.texture_stage_step.launches
-             - launches)
+    other = sum(s.launches for s in stage_steps().values()) - launches
     if launches != NUM_BLOCKS or other:
         raise AssertionError(f"{tag}: {launches} kernel launches (and {other} "
                              f"of another kernel) for {NUM_BLOCKS} blocks")
@@ -360,6 +426,140 @@ def phase_corpus(device, plugin, params):
                       sk.saturator_stage_step)
 
 
+def model_kernel_vs_plain(device, name, params, x):
+    """Punch or motion: kernel and plain version over two blocks, each from
+    its own copy of the state; then the times per block."""
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+    from juicy_tpu_torch.runtime.plugin import Plugin
+
+    b, n = BATCH, BLOCK
+    plugin = Plugin(name, SR, CHANNELS, n)
+    lanes_cuda = getattr(sk, f"_{name}_lanes_cuda")
+    lanes_plain = getattr(sk, f"_{name}_lanes_plain")
+    st0 = st_k = st_p = plugin.init_state((b,), device)
+    worst = 0.0
+    for i in range(2):
+        blk = x[..., i * n:(i + 1) * n]
+        out_k, dsp_k, *raw_k = lanes_cuda(blk, st_k["dsp"], sk.pack_lane(
+            st_k["analyzer"], b), params, SR)
+        out_p, dsp_p, *raw_p = lanes_plain(blk, st_p["dsp"], sk.pack_lane(
+            st_p["analyzer"], b), params, SR)
+        tag = f"{name} block {i}"
+        db = residual_dbfs(out_k, out_p)
+        worst = max(worst, max_diff(out_k, out_p))
+        if db > -120.0:
+            raise AssertionError(f"{tag}: kernel vs plain {db:.1f} dBFS")
+        if set(dsp_k) != set(dsp_p):
+            raise AssertionError(f"{tag}: state keys differ")
+        for key, v in dsp_p.items():
+            if dsp_k[key].dtype != v.dtype or not torch.equal(dsp_k[key], v):
+                raise AssertionError(f"{tag}: state {key} differs")
+        for j in (0, 2):       # fin row 4 = cooldown, acc row 1 = onsets
+            if not torch.equal(raw_k[j][4], raw_p[j][4]):
+                raise AssertionError(f"{tag}: lane cooldowns differ")
+            if not torch.equal(raw_k[j + 1][1], raw_p[j + 1][1]):
+                raise AssertionError(f"{tag}: onset counts differ")
+        an_k, m_k, _ = sk.metrics_from_lanes(*raw_k, st_k["analyzer"], n, SR)
+        an_p, m_p, _ = sk.metrics_from_lanes(*raw_p, st_p["analyzer"], n, SR)
+        check_metrics(tag, m_k, m_p)
+        st_k, st_p = {"analyzer": an_k, "dsp": dsp_k}, {"analyzer": an_p,
+                                                       "dsp": dsp_p}
+        extra = ""
+        if name == "motion":
+            rolled = float((dsp_k["rng"] != st0["dsp"]["rng"]).float().mean())
+            extra = (f", rng rolled in {rolled:.1%} of clips, cooldown "
+                     f"running in {float((dsp_k['onset_cooldown'] > 0).float().mean()):.1%}")
+        print(f"{tag}: audio {db:.1f} dBFS, state bit-equal, lane onsets "
+              f"{int(raw_k[1][1].sum())} pre / {int(raw_k[3][1].sum())} post, "
+              f"score {max_diff(m_k['score'], m_p['score']):.3g}{extra}")
+    if name == "motion" and rolled < 0.9:
+        raise AssertionError(f"motion: pass 1 rolled the LCG in only "
+                             f"{rolled:.1%} of clips")
+
+    blk = x[..., :n]
+    lane0 = sk.pack_lane(st_k["analyzer"], b)
+    bufs = getattr(sk, f"{name}_cuda_buffers")(blk, st_k["dsp"], lane0)
+    launch = getattr(sk, f"{name}_cuda_launch")
+    step = stage_steps()[name]
+    ms = cuda_ms(lambda: launch(bufs, params, SR), 20)
+    layout_ms = cuda_ms(lambda: lanes_cuda(blk, st_k["dsp"], lane0, params,
+                                           SR), 20)
+    step_ms = cuda_ms(lambda: step(params, st_k, blk, SR), 20)
+    plain_ms = cuda_ms(lambda: lanes_plain(blk, st_p["dsp"], lane0, params,
+                                           SR), 1)
+    bound_ms, bound_by = {"punch": punch_bound,
+                          "motion": motion_bound}[name](b, CHANNELS, n)
+    print(f"{name} per block at B={b}, N={n}: kernel {ms:.4f} ms alone, "
+          f"{layout_ms:.4f} ms with layout, whole step {step_ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "layout_ms": layout_ms, "step_ms": step_ms}
+
+
+def phase_punch_motion_kernels(device):
+    """3c and 3d: punch ("Solar Snap") and motion (defaults)."""
+    from juicy_tpu_torch.runtime.plugin import Plugin
+
+    # one burst per clip, somewhere in the two blocks
+    x = make_clicks(BATCH, CHANNELS, 2 * BLOCK, device, seed=19,
+                    period=2 * BLOCK)
+    punch = Plugin("punch", SR, CHANNELS, BLOCK)
+    motion = Plugin("motion", SR, CHANNELS, BLOCK)
+    return {"punch": model_kernel_vs_plain(device, "punch",
+                                           punch.preset(PUNCH_PRESET), x),
+            "motion": model_kernel_vs_plain(device, "motion",
+                                            motion.default_params(), x)}
+
+
+def phase_punch_motion_corpus(device):
+    """4c: punch and motion at full width on the burst input."""
+    from juicy_tpu_torch.runtime.plugin import Plugin
+
+    clips = make_clicks(BATCH, CHANNELS, NUM_BLOCKS * BLOCK, device, seed=23)
+    launches = {}
+    for name, preset in (("punch", PUNCH_PRESET), ("motion", None)):
+        plugin = Plugin(name, SR, CHANNELS, BLOCK)
+        params = plugin.preset(preset) if preset else plugin.default_params()
+        launches[name] = corpus_run(name, plugin, params, clips,
+                                    stage_steps()[name])
+    return launches
+
+
+def phase_chain(device):
+    """4d: the seven-stage Chain on the card against the CPU."""
+    from juicy_tpu_torch.runtime.plugin import Chain
+
+    chain = Chain(CHAIN, SR, CHANNELS, BLOCK)
+    clips = make_clicks(CHAIN_BATCH, CHANNELS, 2 * BLOCK, device, seed=29)
+    t0 = time.perf_counter()
+    out_g, _st, m_g = chain.batched_run(chain.init_state((CHAIN_BATCH,),
+                                                         device), clips)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_c, _st, m_c = chain.batched_run(chain.init_state((CHAIN_BATCH,),
+                                                         "cpu"), clips.cpu())
+    t_cpu = time.perf_counter() - t0
+    if out_g.device != clips.device or not bool(torch.isfinite(out_g).all()):
+        raise AssertionError("chain: output not finite on the card")
+    db = residual_dbfs(out_g.cpu(), out_c)
+    worst = 0.0
+    for s, (stage_g, stage_c) in enumerate(zip(m_g, m_c, strict=True)):
+        for key, v in stage_c.items():
+            d = (stage_g[key].cpu().double() - v.double()).abs()
+            rel = float((d / v.double().abs().clamp(min=1.0)).max())
+            worst = max(worst, rel)
+            if rel > 1e-5:
+                raise AssertionError(f"chain stage {CHAIN[s][0]}: metric "
+                                     f"{key} off by {rel:.3g} of its scale")
+    print(f"chain ({len(CHAIN)} stages) B={CHAIN_BATCH} 2 blocks, card vs "
+          f"CPU: audio {db:.1f} dBFS, metrics within {worst:.3g} of their "
+          f"scale ({t_card:.1f} s on the card, {t_cpu:.1f} s on the CPU)")
+    if db > -100.0:
+        raise AssertionError(f"chain: card vs CPU {db:.1f} dBFS")
+
+
 def phase_texture_corpus(device):
     """gel, metal and wood at full width; each run read on its own."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
@@ -388,8 +588,11 @@ def main():
     params = plugin.preset(PRESET)
     sat_timing = phase_kernel_vs_plain(device, plugin, params)
     tex_timing = phase_texture_kernel_vs_plain(device)
+    pm_timing = phase_punch_motion_kernels(device)
     sat_launches = phase_corpus(device, plugin, params)
     tex_launches = phase_texture_corpus(device)
+    pm_launches = phase_punch_motion_corpus(device)
+    phase_chain(device)
     ref = tex_timing[MATERIALS[REFERENCE_MATERIAL]]
     print(json.dumps({"kernels": [{
         "name": "saturator_stage",
@@ -411,6 +614,20 @@ def main():
         "timed_material": MATERIALS[REFERENCE_MATERIAL],
         "launches_by_material": tex_launches,
         "by_material": tex_timing,
+    }, {
+        "name": "punch_stage",
+        "route": "cuda",
+        "source": "juicy_tpu_torch/csrc/punch_stage.cu",
+        "replaces": "juicy_tpu/kernels/stage_kernels.py:331",
+        "launches": pm_launches["punch"],
+        **pm_timing["punch"],
+    }, {
+        "name": "motion_stage",
+        "route": "cuda",
+        "source": "juicy_tpu_torch/csrc/motion_stage.cu",
+        "replaces": "juicy_tpu/kernels/stage_kernels.py:1490",
+        "launches": pm_launches["motion"],
+        **pm_timing["motion"],
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

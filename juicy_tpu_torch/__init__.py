@@ -6,21 +6,24 @@ kernels as CUDA C++ written for Hopper (``csrc/``, built at first use by
 ``kernels/_build.py``). It imports neither JAX nor ``juicy_tpu``.
 
 Ported so far (ROADMAP.md lists the rest): the drift-pinned numerics and the
-LCG noise, the analyzer, ``Plugin`` with the saturator and texture (static
-material), the saturator and texture stage kernels and ``run_corpus``.
+LCG noise, the analyzer, ``Plugin`` and ``Chain`` with all seven processors
+(texture with a static material), the punch, saturator, texture and motion
+stage kernels and ``run_corpus``.
 Every entry point runs on the CUDA card unless the caller passes another
 ``device`` (``runtime/device.py``); ``device="cpu"`` is the plain route.
 """
 
 from juicy_tpu_torch.analyzer import analyze, analyzer_init
 from juicy_tpu_torch.kernels.stage_kernels import (
-    saturator_stage_step, saturator_stage_step_plain, texture_stage_step,
-    texture_stage_step_plain)
+    motion_stage_step, motion_stage_step_plain, punch_stage_step,
+    punch_stage_step_plain, saturator_stage_step, saturator_stage_step_plain,
+    texture_stage_step, texture_stage_step_plain)
 from juicy_tpu_torch.models import get_processor
 from juicy_tpu_torch.parallel.corpus import corpus_metrics, run_corpus
-from juicy_tpu_torch.runtime.plugin import Plugin
+from juicy_tpu_torch.runtime.plugin import Chain, Plugin
 
-__all__ = ["Plugin", "analyze", "analyzer_init", "corpus_metrics",
-           "get_processor", "run_corpus", "saturator_stage_step",
-           "saturator_stage_step_plain", "texture_stage_step",
-           "texture_stage_step_plain"]
+__all__ = ["Chain", "Plugin", "analyze", "analyzer_init", "corpus_metrics",
+           "get_processor", "motion_stage_step", "motion_stage_step_plain",
+           "punch_stage_step", "punch_stage_step_plain", "run_corpus",
+           "saturator_stage_step", "saturator_stage_step_plain",
+           "texture_stage_step", "texture_stage_step_plain"]

@@ -44,6 +44,71 @@ __device__ __forceinline__ float cos32(float z) {
   return acc;
 }
 
+// exp(x) for x in [-2.5, 0]: Taylor degree 18; each coefficient is the f32
+// rounding of 1/k!.
+__device__ __forceinline__ float exp32(float x) {
+  float acc = 0x1.682786p-53f;
+  acc = acc * x + 0x1.952c78p-49f;
+  acc = acc * x + 0x1.ae7f3ep-45f;
+  acc = acc * x + 0x1.ae7f3ep-41f;
+  acc = acc * x + 0x1.93974ap-37f;
+  acc = acc * x + 0x1.612462p-33f;
+  acc = acc * x + 0x1.1eed8ep-29f;
+  acc = acc * x + 0x1.ae6456p-26f;
+  acc = acc * x + 0x1.27e4fcp-22f;
+  acc = acc * x + 0x1.71de3ap-19f;
+  acc = acc * x + 0x1.a01a02p-16f;
+  acc = acc * x + 0x1.a01a02p-13f;
+  acc = acc * x + 0x1.6c16c2p-10f;
+  acc = acc * x + 0x1.111112p-7f;
+  acc = acc * x + 0x1.555556p-5f;
+  acc = acc * x + 0x1.555556p-3f;
+  acc = acc * x + 0x1p-1f;
+  acc = acc * x + 0x1p+0f;
+  acc = acc * x + 0x1p+0f;
+  return acc;
+}
+
+// exp(x) for x in [-0.7, 0]: the degree-9 truncation of exp32's series.
+__device__ __forceinline__ float exp32_narrow(float x) {
+  float acc = 0x1.71de3ap-19f;
+  acc = acc * x + 0x1.a01a02p-16f;
+  acc = acc * x + 0x1.a01a02p-13f;
+  acc = acc * x + 0x1.6c16c2p-10f;
+  acc = acc * x + 0x1.111112p-7f;
+  acc = acc * x + 0x1.555556p-5f;
+  acc = acc * x + 0x1.555556p-3f;
+  acc = acc * x + 0.5f;
+  acc = acc * x + 1.0f;
+  acc = acc * x + 1.0f;
+  return acc;
+}
+
+// sin(x) for |x| <= 7.2: branch-free reduction to [-pi, pi] (two steps each
+// way), the fold sin(pi - x) = sin(x) to [-pi/2, pi/2], then an odd Horner
+// polynomial of degree 13 whose coefficients are the f32 roundings of
+// (-1)^k / (2k+1)!.
+__device__ __forceinline__ float sin32(float x) {
+  constexpr float kPi = 0x1.921fb6p+1f;
+  constexpr float kTwoPi = 0x1.921fb6p+2f;
+  constexpr float kHalfPi = 0x1.921fb6p+0f;
+  x = x > kPi ? x - kTwoPi : x;
+  x = x > kPi ? x - kTwoPi : x;
+  x = x < -kPi ? x + kTwoPi : x;
+  x = x < -kPi ? x + kTwoPi : x;
+  x = x > kHalfPi ? kPi - x : x;
+  x = x < -kHalfPi ? -kPi - x : x;
+  const float u = x * x;
+  float acc = 0x1.612462p-33f;
+  acc = acc * u + -0x1.ae6456p-26f;
+  acc = acc * u + 0x1.71de3ap-19f;
+  acc = acc * u + -0x1.a01a02p-13f;
+  acc = acc * u + 0x1.111112p-7f;
+  acc = acc * u + -0x1.555556p-3f;
+  acc = acc * u + 1.0f;
+  return x * acc;
+}
+
 // 2^x for |x| <= 125 (clipped outside).
 __device__ __forceinline__ float exp2_32(float x) {
   x = fminf(fmaxf(x, -125.0f), 125.0f);
@@ -62,6 +127,51 @@ __device__ __forceinline__ float tanh32(float x) {
   float t = 1.0f - 2.0f / (e2 + 1.0f);
   t = ax > 0x1.233334p+3f ? 1.0f : t;               // f32(9.1)
   return sign * t;
+}
+
+// log2(x) for normal positive x: the exponent from the bits, the mantissa
+// folded to [sqrt(2)/2, sqrt(2)] and an atanh series in s = (m-1)/(m+1),
+// coefficients the f32 roundings of 2/(ln 2 (2k+1)).
+__device__ __forceinline__ float log2_32(float x) {
+  const int bits = __float_as_int(x);
+  int e = ((bits >> 23) & 0xFF) - 127;
+  float m = __int_as_float((bits & 0x7FFFFF) | 0x3F800000);
+  const bool big = m > 0x1.6a09e6p+0f;  // f32(sqrt 2)
+  m = big ? m * 0.5f : m;
+  e += big ? 1 : 0;
+  const float s = (m - 1.0f) / (m + 1.0f);
+  const float u = s * s;
+  float acc = 0x1.0c9a84p-2f;
+  acc = acc * u + 0x1.484b14p-2f;
+  acc = acc * u + 0x1.a61762p-2f;
+  acc = acc * u + 0x1.2776c6p-1f;
+  acc = acc * u + 0x1.ec709ep-1f;
+  acc = acc * u + 0x1.715476p+1f;
+  return static_cast<float>(e) + s * acc;
+}
+
+// a^b for a > 0 as exp2(b log2 a); a = 0 gives 2^-125 scaled, as on every
+// other path.
+__device__ __forceinline__ float pow32(float a, float b) {
+  return exp2_32(b * log2_32(a));
+}
+
+// 1 - exp(-2 pi f / sr) for a per-sample cutoff f; `narrow` when the
+// caller's cutoff bound keeps the argument in [-0.7, 0] (the host decides,
+// as ops/precise.py::onepole_coeff32 does).
+__device__ __forceinline__ float onepole_coeff32(float f, float sr,
+                                                 bool narrow) {
+  const float arg = (-0x1.921fb6p+2f * f) / sr;
+  return 1.0f - (narrow ? exp32_narrow(arg) : exp32(arg));
+}
+
+__device__ __forceinline__ float clamp_to(float x, float lo, float hi) {
+  return fminf(fmaxf(x, lo), hi);
+}
+
+// One step of the reference's 32-bit LCG, with native u32 wrap.
+__device__ __forceinline__ unsigned lcg_step(unsigned r) {
+  return r * 1664525u + 1013904223u;
 }
 
 }  // namespace juicy

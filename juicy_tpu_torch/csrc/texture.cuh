@@ -47,18 +47,10 @@ struct TexDrive {
   float core, impact, body, trail;
 };
 
-__device__ __forceinline__ float clamp_to(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
-}
-
 // ((rng >> 8) & 0xFFFF) / 32768 - 1 (cpp:240); exact.
 __device__ __forceinline__ float tex_white(unsigned r) {
   return static_cast<float>(static_cast<int>((r >> 8) & 0xFFFFu)) * 0x1p-15f -
          1.0f;
-}
-
-__device__ __forceinline__ unsigned lcg_step(unsigned r) {
-  return r * 1664525u + 1013904223u;
 }
 
 // Envelopes and band split (cpp:114-133).

@@ -122,6 +122,11 @@ def load_library() -> ctypes.CDLL:
     lib.juicy_texture_stage.argtypes = (
         [ptr] * 16 + [i32] * 5 + [u32] * 2 + [ptr, i32, ptr])
     lib.juicy_texture_stage.restype = i32
+    lib.juicy_punch_stage.argtypes = [ptr] * 9 + [i32] * 3 + [ptr, i32, ptr]
+    lib.juicy_punch_stage.restype = i32
+    lib.juicy_motion_stage.argtypes = (
+        [ptr] * 15 + [i32] * 5 + [ptr, i32, ptr])
+    lib.juicy_motion_stage.restype = i32
     lib.juicy_cuda_error_string.argtypes = [i32]
     lib.juicy_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,15 +1,16 @@
 """Full-stage kernels: pre-analyze + DSP + post-analyze of one block in one
 launch. PyTorch port of juicy_tpu/kernels/stage_kernels.py (the analyzer
-lane, the saturator and texture).
+lane and the punch, saturator, texture and motion stage steps).
 
-``saturator_stage_step(params, state, block, sr)`` and
-``texture_stage_step`` keep the JAX contract: ``block`` [B, C, N] float32,
-state leaves with a leading [B], returns ``(out [B, C, N], state',
-metrics)``. For a CUDA tensor each launches its hand-written kernel
-(``csrc/saturator_stage.cu``, ``csrc/texture_stage.cu``); for a CPU tensor
-it runs its ``*_plain`` version, the same computation as a serial
-per-sample loop over [B] / [B, C] tensors in the kernel's op order. Any
-other device raises; neither falls back from one route to the other.
+``punch_stage_step(params, state, block, sr)``, ``saturator_stage_step``,
+``texture_stage_step`` and ``motion_stage_step`` keep the JAX contract:
+``block`` [B, C, N] float32, state leaves with a leading [B], returns
+``(out [B, C, N], state', metrics)``. For a CUDA tensor each launches its
+hand-written kernel (``csrc/punch_stage.cu``, ``csrc/saturator_stage.cu``,
+``csrc/texture_stage.cu``, ``csrc/motion_stage.cu``); for a CPU tensor it
+runs its ``*_plain`` version, the same computation as serial per-sample
+loops over [B] / [B, C] tensors in the kernel's op order. Any other device
+raises; none falls back from one route to the other.
 
 Inside the block, per clip: the pre-lane (15 analyzer variables) and the
 saturator run in one sample loop; the pre-lane's values are stored; the lane
@@ -29,10 +30,12 @@ import numpy as np
 import torch
 
 from juicy_tpu_torch import analyzer as _an
+from juicy_tpu_torch.models import motion as _motion
+from juicy_tpu_torch.models import punch as _punch
 from juicy_tpu_torch.models import saturator as _sat
 from juicy_tpu_torch.models import texture as _tex
 from juicy_tpu_torch.ops import noise as _noise
-from juicy_tpu_torch.ops.precise import F32, f32, tanh32
+from juicy_tpu_torch.ops.precise import F32, f32, onepole_narrow, tanh32
 
 # lane variables kept across the pre → post reset, in ``fin`` row order
 _LANE_FIN = (0, 1, 5, 6, 2)     # s_env, l_env, low, high, cooldown
@@ -297,24 +300,6 @@ def tex_param_list(params, sr: float, mode: int):
     return [f32(v) for v in pv]
 
 
-def _params_key(params):
-    return tuple(sorted((k, float(v)) for k, v in params.items()))
-
-
-@functools.lru_cache(maxsize=64)
-def _tex_scalars_cached(key, sr: float, mode: int):
-    vals = list(_lane_consts(sr)) + tex_param_list(dict(key), sr, mode)
-    arr = np.asarray(vals, dtype=np.float32)
-    arr.setflags(write=False)
-    return arr
-
-
-def _tex_scalars(params, sr: float, mode: int) -> np.ndarray:
-    """Lane and texture constants as one float32 array, worked out once per
-    (params, sr, material) and cached: only the audio changes per block."""
-    return _tex_scalars_cached(_params_key(params), float(sr), mode)
-
-
 def tex_mat_leaves(dsp, mode: int):
     """Material-state leaves ([B, C] each) in the kernel's order."""
     if mode == 0:
@@ -467,7 +452,7 @@ def tex_cuda_launch(bufs, params, sr: float, mode: int):
 
     lib = _build.load_library()
     n, c, b = bufs["x"].shape
-    consts = _tex_scalars(params, sr, mode)
+    consts = stage_scalars("texture", params, sr)
     jump_a, jump_b = _noise.jump(n)
     ptrs = [None if bufs[k] is None else bufs[k].data_ptr() for k in _TEX_ARGS]
     device = bufs["x"].device
@@ -563,3 +548,283 @@ def texture_stage_step(params, state, block, sr: float):
 
 #: kernel launches made by texture_stage_step (CUDA tensors only)
 texture_stage_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Punch and motion full-stage steps
+#
+# Their plain versions are the models' own process (models/punch.py,
+# models/motion.py) between the two analyzer lanes: the kernels run the same
+# per-sample bodies in the same op order (csrc/punch.cuh, csrc/motion.cuh).
+# The state keeps the Plugin's form; motion's LCG state crosses to the kernel
+# as int32 bits and back per block.
+# ---------------------------------------------------------------------------
+
+_PUNCH_SHAPE = ("curve_exp", "punch_k", "sustain_k", "drive", "tanh_drive",
+                "clip", "hard_k", "mix", "out_gain")
+_MOTION_P2 = ("var_slew", "one_slew", "motion_inc", "lfo_depth", "cut_depth",
+              "boost_depth", "lfo_mv", "lfo_depth2", "tone_depth", "trans_mv",
+              "trans_depth", "tail_feedback", "tail_mix", "budget_coeff",
+              "one_budget", "budget_target", "wet_boost", "mix", "out_gain")
+
+
+def punch_param_list(params, sr: float):
+    """The punch kernel's constants after the 7 lane constants, as f32
+    Python floats in csrc/punch.cuh's PunchConsts order."""
+    fast_c, slow_c = _punch.env_coeffs(sr)
+    k = _punch.shape_consts(params)
+    return [f32(1.0 - fast_c), fast_c, f32(1.0 - slow_c), slow_c] + \
+        [float(k[key]) for key in _PUNCH_SHAPE]
+
+
+def motion_param_list(params, sr: float):
+    """The motion kernel's constants after the 7 lane constants, as f32
+    Python floats in csrc/motion.cuh's MotionConsts order."""
+    k = _motion.p2_consts(params, sr)
+    k.update(_motion.p2_factors(k))
+    vals = [*_motion.p1_consts(sr), params["microvar"], params["repeatctrl"],
+            *(k[key] for key in _MOTION_P2), sr]
+    return [f32(v) for v in vals]
+
+
+_PARAM_LISTS = {
+    "punch": punch_param_list, "motion": motion_param_list,
+    "texture": lambda p, sr: tex_param_list(p, sr, _tex.require_static(p))}
+
+
+@functools.lru_cache(maxsize=64)
+def _stage_scalars_cached(name: str, key, sr: float):
+    params = {k: torch.tensor(f32(v), dtype=F32) for k, v in key}
+    vals = list(_lane_consts(sr)) + _PARAM_LISTS[name](params, sr)
+    arr = np.asarray(vals, dtype=np.float32)
+    arr.setflags(write=False)
+    return arr
+
+
+def stage_scalars(name: str, params, sr: float) -> np.ndarray:
+    """A stage kernel's lane and stage constants as one float32 array,
+    worked out once per (stage, params, sr) and cached: only the audio
+    changes per block. Texture's params hold its static material."""
+    key = tuple(sorted((k, float(v)) for k, v in params.items()))
+    return _stage_scalars_cached(name, key, float(sr))
+
+
+def _lanes_around(x, out, lane0, sr: float):
+    """The pre lane over the input and the post lane over the output:
+    (pre fin, pre acc, post fin, post acc)."""
+    c = x.shape[1]
+    lane_k = _lane_consts(sr)
+    lane = _lane_from_fin(lane0)
+    for t in range(x.shape[2]):
+        lane = _lane_step(lane, x[:, 0, t], x[:, c - 1, t], lane_k)
+    pre_fin, pre_acc = _store_lane(lane)
+    lane = _lane_reset(lane)
+    for t in range(x.shape[2]):
+        lane = _lane_step(lane, out[:, 0, t], out[:, c - 1, t], lane_k)
+    return (pre_fin, pre_acc, *_store_lane(lane))
+
+
+def _model_lanes_plain(process):
+    """Plain version of a punch or motion kernel: the model's process
+    between the two lanes. (x, dsp, lane0, params, sr) -> (out, dsp', pre
+    fin, pre acc, post fin, post acc)."""
+    def lanes(x, dsp, lane0, params, sr: float):
+        out, new_dsp = process(params, dsp, x, sr)
+        return (out, new_dsp, *_lanes_around(x, out, lane0, sr))
+    return lanes
+
+
+_punch_lanes_plain = _model_lanes_plain(_punch.process)
+_motion_lanes_plain = _model_lanes_plain(_motion.process)
+
+
+def _lane_outputs(b: int, device):
+    return {name: torch.empty((rows, b), dtype=F32, device=device)
+            for name, rows in (("pre_fin", 5), ("pre_acc", 10),
+                               ("post_fin", 5), ("post_acc", 10))}
+
+
+def punch_cuda_buffers(x, dsp, lane0):
+    """The punch kernel's inputs in its layout and its outputs, as a dict
+    of tensors (the layout permutes of one block)."""
+    bufs = dict(x=x.permute(2, 1, 0).contiguous(),                # [N, C, B]
+                env_in=torch.stack([dsp["fast_env"], dsp["slow_env"]]),
+                lane_in=lane0.contiguous())
+    bufs.update(out=torch.empty_like(bufs["x"]),
+                env_out=torch.empty_like(bufs["env_in"]),
+                **_lane_outputs(x.shape[0], x.device))
+    return bufs
+
+
+_PUNCH_ARGS = ("x", "env_in", "lane_in", "out", "env_out", "pre_fin",
+               "pre_acc", "post_fin", "post_acc")
+
+
+def punch_cuda_launch(bufs, params, sr: float):
+    """Launch ``juicy_punch_stage`` (csrc/punch_stage.cu) on prepared
+    buffers, on the current stream of their device; raises on a refused
+    launch."""
+    from juicy_tpu_torch.kernels import _build
+
+    lib = _build.load_library()
+    n, c, b = bufs["x"].shape
+    consts = stage_scalars("punch", params, sr)
+    device = bufs["x"].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.juicy_punch_stage(
+            *(bufs[k].data_ptr() for k in _PUNCH_ARGS), b, c, n,
+            consts.ctypes.data, consts.size, stream)
+    if err != 0:
+        raise RuntimeError(f"juicy_punch_stage launch failed: CUDA error "
+                           f"{err} ({_build.error_string(lib, err)})")
+    punch_stage_step.launches += 1
+
+
+def _punch_lanes_cuda(x, dsp, lane0, params, sr: float):
+    """The kernel route: layout, launch, unpack. Same contract as
+    _punch_lanes_plain."""
+    bufs = punch_cuda_buffers(x, dsp, lane0)
+    punch_cuda_launch(bufs, params, sr)
+    fast, slow = bufs["env_out"].unbind(0)
+    return (bufs["out"].permute(2, 1, 0), {"fast_env": fast, "slow_env": slow},
+            bufs["pre_fin"], bufs["pre_acc"], bufs["post_fin"],
+            bufs["post_acc"])
+
+
+def motion_cuda_buffers(x, dsp, lane0):
+    """The motion kernel's inputs in its layout (``rng`` as int32 bits) and
+    its outputs, as a dict of tensors."""
+    bufs = dict(x=x.permute(2, 1, 0).contiguous(),                # [N, C, B]
+                mono_in=torch.stack([dsp[k] for k in _motion.MONO_KEYS]),
+                cd_in=dsp["onset_cooldown"].contiguous(),
+                rng_in=_noise.u32_to_i32_bits(dsp["rng"]),
+                chan_in=torch.stack([dsp[k] for k in _motion.CHAN_KEYS]),
+                lane_in=lane0.contiguous())
+    bufs.update({k + "_out": torch.empty_like(bufs[k + "_in"])
+                 for k in ("mono", "cd", "rng", "chan")},
+                out=torch.empty_like(bufs["x"]),
+                **_lane_outputs(x.shape[0], x.device))
+    return bufs
+
+
+_MOTION_ARGS = ("x", "mono_in", "cd_in", "rng_in", "chan_in", "lane_in",
+                "out", "mono_out", "cd_out", "rng_out", "chan_out", "pre_fin",
+                "pre_acc", "post_fin", "post_acc")
+
+
+def motion_cuda_launch(bufs, params, sr: float):
+    """Launch ``juicy_motion_stage`` (csrc/motion_stage.cu) on prepared
+    buffers, on the current stream of their device; raises on a refused
+    launch."""
+    from juicy_tpu_torch.kernels import _build
+
+    lib = _build.load_library()
+    n, c, b = bufs["x"].shape
+    consts = stage_scalars("motion", params, sr)
+    narrow = int(onepole_narrow(_motion.MAX_CUTOFF_HZ, sr))
+    device = bufs["x"].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.juicy_motion_stage(
+            *(bufs[k].data_ptr() for k in _MOTION_ARGS), b, c, n,
+            _motion.cooldown_samples(sr), narrow, consts.ctypes.data,
+            consts.size, stream)
+    if err != 0:
+        raise RuntimeError(f"juicy_motion_stage launch failed: CUDA error "
+                           f"{err} ({_build.error_string(lib, err)})")
+    motion_stage_step.launches += 1
+
+
+def _motion_lanes_cuda(x, dsp, lane0, params, sr: float):
+    """The kernel route: layout, launch, unpack. Same contract as
+    _motion_lanes_plain."""
+    bufs = motion_cuda_buffers(x, dsp, lane0)
+    motion_cuda_launch(bufs, params, sr)
+    new_dsp = dict(zip(_motion.MONO_KEYS, bufs["mono_out"].unbind(0)))
+    new_dsp.update(zip(_motion.CHAN_KEYS, bufs["chan_out"].unbind(0)))
+    new_dsp["onset_cooldown"] = bufs["cd_out"]
+    new_dsp["rng"] = _noise.i32_bits_to_u32(bufs["rng_out"])
+    return (bufs["out"].permute(2, 1, 0), new_dsp, bufs["pre_fin"],
+            bufs["pre_acc"], bufs["post_fin"], bufs["post_acc"])
+
+
+# state leaf -> (dtype, per-channel)
+_STATE_SPECS = {
+    "punch": {"fast_env": (F32, True), "slow_env": (F32, True)},
+    "motion": {**{k: (F32, False) for k in _motion.MONO_KEYS},
+               "onset_cooldown": (torch.int32, False),
+               "rng": (torch.int64, False),
+               **{k: (F32, True) for k in _motion.CHAN_KEYS}},
+}
+
+
+def _model_stage(name, lanes_fn, params, state, block, sr: float):
+    """Check the block, the params and the state, run `lanes_fn`, finalize
+    the two lanes."""
+    if block.dtype != F32 or block.ndim != 3:
+        raise ValueError(f"expected float32 block [B, C, N], got "
+                         f"{block.dtype} {tuple(block.shape)}")
+    b, c, n = block.shape
+    if c not in (1, 2) or n == 0 or b == 0:
+        raise ValueError(f"unsupported block shape {tuple(block.shape)}")
+    for key, v in params.items():
+        if torch.as_tensor(v).ndim:
+            raise ValueError(f"the stage kernel takes one setting per call; "
+                             f"param {key!r} is batched")
+    dsp = state["dsp"]
+    for key, (dtype, per_chan) in _STATE_SPECS[name].items():
+        t, shape = dsp[key], ((b, c) if per_chan else (b,))
+        if tuple(t.shape) != shape or t.dtype != dtype or t.device != block.device:
+            raise ValueError(f"{name} state {key!r} must be {dtype} {shape} "
+                             f"on the block's device")
+    lane0 = pack_lane(state["analyzer"], b)
+    if lane0.device != block.device:
+        raise ValueError("analyzer state must be on the block's device")
+    out, new_dsp, pre_fin, pre_acc, post_fin, post_acc = lanes_fn(
+        block, dsp, lane0, params, sr)
+    post_state, m, _pre = metrics_from_lanes(pre_fin, pre_acc, post_fin,
+                                             post_acc, state["analyzer"], n, sr)
+    return out, {"analyzer": post_state, "dsp": new_dsp}, m
+
+
+def punch_stage_step_plain(params, state, block, sr: float):
+    """The punch stage step as plain PyTorch, on any device."""
+    return _model_stage("punch", _punch_lanes_plain, params, state, block, sr)
+
+
+def punch_stage_step(params, state, block, sr: float):
+    """Full punch step (pre-analyze → DSP → post-analyze) in one kernel
+    launch for a CUDA `block`; the plain version for a CPU `block`."""
+    if block.device.type == "cuda":
+        return _model_stage("punch", _punch_lanes_cuda, params, state, block,
+                            sr)
+    if block.device.type == "cpu":
+        return punch_stage_step_plain(params, state, block, sr)
+    raise ValueError(f"no punch stage kernel for device {block.device}")
+
+
+#: kernel launches made by punch_stage_step (CUDA tensors only)
+punch_stage_step.launches = 0
+
+
+def motion_stage_step_plain(params, state, block, sr: float):
+    """The motion stage step as plain PyTorch, on any device."""
+    return _model_stage("motion", _motion_lanes_plain, params, state, block,
+                        sr)
+
+
+def motion_stage_step(params, state, block, sr: float):
+    """Full motion step (pre-analyze → pass 1 → pass 2 on channel 0 then
+    channel 1 → post-analyze) in one kernel launch for a CUDA `block`; the
+    plain version for a CPU `block`."""
+    if block.device.type == "cuda":
+        return _model_stage("motion", _motion_lanes_cuda, params, state,
+                            block, sr)
+    if block.device.type == "cpu":
+        return motion_stage_step_plain(params, state, block, sr)
+    raise ValueError(f"no motion stage kernel for device {block.device}")
+
+
+#: kernel launches made by motion_stage_step (CUDA tensors only)
+motion_stage_step.launches = 0

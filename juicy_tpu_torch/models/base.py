@@ -4,7 +4,10 @@ juicy_tpu/models/base.py.
 A processor registers a :class:`ProcessorDef` with
   * ``init(sr, channels, batch_shape, device) -> carry`` (prepareToPlay);
   * ``process(params, carry, block, sr) -> (out, carry')``, the DSP of
-    processBlock without the analyzer passes, which the runtime adds.
+    processBlock without the analyzer passes, which the runtime adds;
+  * optionally ``finalize_metrics(params, pre, post, carry) -> metrics``
+    for a plugin's own metric quirks (infer's sensitivity and slot remap,
+    cohere's context fit).
 Params are dicts of float32 tensors: 0-dim for one setting, or a leading
 batch dim for per-clip settings.
 """
@@ -12,11 +15,11 @@ batch dim for per-clip settings.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from juicy_tpu_torch.ops.precise import F32, f32
+from juicy_tpu_torch.ops.precise import F32, as_f32, div_const, f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +32,16 @@ class ParamSpec:
     default: float
     readonly: bool = False          # read-only metric outputs (skip in UIs)
     choices: Tuple[str, ...] = ()   # non-empty => AudioParameterChoice analog
+    boolean: bool = False           # AudioParameterBool analog
+
+    def to_normalized(self, value):
+        return div_const(as_f32(value) - f32(self.lo), self.hi - self.lo)
+
+    def from_normalized(self, norm):
+        return f32(self.lo) + as_f32(norm) * f32(self.hi - self.lo)
+
+    def clamp(self, value):
+        return torch.clamp(as_f32(value), f32(self.lo), f32(self.hi))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +54,7 @@ class ProcessorDef:
     presets: Tuple[Tuple[str, Dict[str, float]], ...]
     init: Callable[..., Any]        # (sr, channels, batch_shape, device) -> carry
     process: Callable[..., Any]     # (params, carry, block, sr) -> (out, carry)
+    finalize_metrics: Optional[Callable[..., Any]] = None
     # Parameters that select code paths (texture's material index); the
     # Plugin holds them as Python ints (Plugin.with_static), not tensors.
     static_params: Tuple[str, ...] = ()
@@ -69,6 +83,15 @@ class ProcessorDef:
         out = self.default_params()
         out.update({k: _scalar(v) for k, v in values.items()})
         return out
+
+
+def bcast_param(v, like: torch.Tensor, dims: int) -> torch.Tensor:
+    """A param (0-dim, or batched with a leading [B]) as a float32 tensor on
+    `like`'s device, a batched one with `dims` trailing axes added so that
+    it broadcasts against audio of `dims` more axes. On the audio's device:
+    on CUDA, a CPU scalar divisor runs as a reciprocal multiply."""
+    v = as_f32(v).to(like.device)
+    return v if v.ndim == 0 else v.reshape(*v.shape, *([1] * dims))
 
 
 def _scalar(v) -> torch.Tensor:

@@ -70,20 +70,11 @@ def process(params, carry, block, sr: float):
     on the params' device and moved to the audio's."""
     dry = as_f32(block)
     k = sat_consts(params, sr)
-    b = lambda v: _bcast(v, dry)  # noqa: E731
+    b = lambda v: base.bcast_param(v, dry, 2)  # noqa: E731
     soft = sat_pre(dry, k, b)
     toned = onepole_lowpass(soft, b(k["tone_coeff"]), carry["tone_state"])
     out = sat_post(dry, toned, k, b)
     return out, {"tone_state": toned[..., -1]}
-
-
-def _bcast(v, like):
-    """A scalar or batched-scalar constant against [..., C, N] audio, on the
-    audio's device."""
-    v = as_f32(v).to(like.device)
-    if v.ndim == 0:
-        return v
-    return v[..., None, None]
 
 
 base.register(base.ProcessorDef(

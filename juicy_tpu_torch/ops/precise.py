@@ -52,6 +52,10 @@ def rdiv_const(c: float, x: torch.Tensor) -> torch.Tensor:
 # Taylor coefficients in float32 (exact rationals rounded once).
 _EXP_C = [f32(1.0 / math.factorial(k)) for k in range(19)]          # deg 18
 _COS_C = [f32((-1.0) ** k / math.factorial(2 * k)) for k in range(11)]  # deg 20
+_SIN_C = [f32((-1.0) ** k / math.factorial(2 * k + 1)) for k in range(7)]  # deg 13
+_PI = f32(3.14159265358979323846)
+_TWO_PI = f32(2.0 * 3.14159265358979323846)
+_HALF_PI = f32(0.5 * 3.14159265358979323846)
 _LOG2E = f32(1.4426950408889634)
 _SQRT2 = f32(math.sqrt(2.0))
 # 2^r = exp(r·ln2), Taylor degree 8 on r ∈ [−0.5, 0.5]
@@ -94,6 +98,40 @@ def cos32(z):
     """cos(z) for |z| ≤ 2.9, f32 even Horner in u = z²."""
     z = as_f32(z)
     return _horner(_COS_C, z * z)
+
+
+def exp32_narrow(x):
+    """exp(x) for x ∈ [−0.7, 0]: the degree-9 truncation of exp32's Taylor
+    series (motion's per-sample cutoff coefficient)."""
+    return _horner(_EXP_C[:10], as_f32(x))
+
+
+def sin32(x):
+    """sin(x) for |x| ≤ 7.2: branch-free reduction to [−π, π], a fold to
+    [−π/2, π/2], then an odd Horner polynomial of degree 13."""
+    x = as_f32(x)
+    x = torch.where(x > _PI, x - _TWO_PI, x)
+    x = torch.where(x > _PI, x - _TWO_PI, x)
+    x = torch.where(x < -_PI, x + _TWO_PI, x)
+    x = torch.where(x < -_PI, x + _TWO_PI, x)
+    x = torch.where(x > _HALF_PI, _PI - x, x)
+    x = torch.where(x < -_HALF_PI, -_PI - x, x)
+    return x * _horner(_SIN_C, x * x)
+
+
+def onepole_coeff32(freq_hz, sr, max_hz: float = None):
+    """1 − exp(−2π·f/sr) for a per-sample cutoff; the narrow exp when the
+    caller's cutoff is bounded by `max_hz` and 2π·max_hz/sr ≤ 0.7."""
+    arg = div_const(-_TWO_PI * as_f32(freq_hz), sr)
+    if max_hz is not None and onepole_narrow(max_hz, sr):
+        return 1.0 - exp32_narrow(arg)
+    return 1.0 - exp32(arg)
+
+
+def onepole_narrow(max_hz: float, sr: float) -> bool:
+    """Whether a cutoff bounded by `max_hz` keeps onepole_coeff32's argument
+    inside exp32_narrow's domain (2π·max_hz/sr ≤ 0.7)."""
+    return _TWO_PI * float(max_hz) / float(sr) <= 0.7
 
 
 def exp2_32(x):

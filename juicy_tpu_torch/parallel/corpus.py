@@ -27,12 +27,20 @@ def corpus_metrics(per_clip_metrics: Dict[str, torch.Tensor]
 
 
 def _stage_kernel_step(plugin: Plugin):
-    """The plugin's full-stage kernel step, or None when it has none (the
-    saturator, and texture with a static material, as in the JAX runner)."""
+    """The plugin's full-stage kernel step, or None when it has none.
+
+    Punch, the saturator, texture (static material) and motion have one.
+    The JAX runner sends punch and motion to XLA's stage instead
+    (``juicy_tpu/parallel/corpus.py`` ``_WINNING_STAGE_KERNELS``) only
+    because their Pallas kernels were no faster on a TPU: a speed choice
+    between two routes that compute the same function. Here the other route
+    is the plain per-sample loop, so every stage kernel is taken."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
 
-    return {"saturator": sk.saturator_stage_step,
-            "texture": sk.texture_stage_step}.get(plugin.defn.name)
+    return {"punch": sk.punch_stage_step,
+            "saturator": sk.saturator_stage_step,
+            "texture": sk.texture_stage_step,
+            "motion": sk.motion_stage_step}.get(plugin.defn.name)
 
 
 def run_corpus(plugin: Plugin, params, clips, use_kernel: str = "auto",
@@ -42,11 +50,13 @@ def run_corpus(plugin: Plugin, params, clips, use_kernel: str = "auto",
     plain PyTorch route.
 
     `use_kernel`: "auto" runs the plugin's full-stage kernel step when it has
-    one (the saturator; texture with a static material), which launches the
-    CUDA kernel for a CUDA corpus and runs its plain version for a CPU
-    corpus; "never" runs ``Plugin.batched_run``; "always" raises unless the
-    CUDA kernel can run. Texture with a per-clip material raises
-    NotImplementedError (its traced path is not ported).
+    one (punch, the saturator, texture with a static material, motion),
+    which launches the CUDA kernel for a CUDA corpus and runs its plain
+    version for a CPU corpus; "never" runs ``Plugin.batched_run``; "always"
+    raises unless the CUDA kernel can run. Width, cohere and infer have no
+    stage kernel and take ``batched_run`` under every setting but "always".
+    Texture with a per-clip material raises NotImplementedError (its traced
+    path is not ported).
 
     Returns (out [B, C, T], per-clip final-block metrics, corpus aggregates).
     """

@@ -1,5 +1,6 @@
 """Plugin runtime: the JUCE processor lifecycle as plain functions on
-tensors. PyTorch port of juicy_tpu/runtime/plugin.py (``Plugin`` only).
+tensors. PyTorch port of juicy_tpu/runtime/plugin.py (``Plugin`` and
+``Chain``).
 
   =====================  =======================================
   JUCE (reference)        juicy_tpu_torch
@@ -9,18 +10,20 @@ tensors. PyTorch port of juicy_tpu/runtime/plugin.py (``Plugin`` only).
   (static params)         ``plugin.with_static(material=2)``
   processBlock            ``plugin.step(params, state, block)``
   setCurrentProgram       ``plugin.preset(name_or_index)``
+  a channel strip         ``Chain([(name, preset), ...], sr, ...)``
   =====================  =======================================
 
 ``step`` runs the reference's three passes per block: pre-analyze, DSP,
-post-analyze, with the analyzer state threaded pre → post. Every function is
-rank-polymorphic over leading batch dims, so ``batch_step`` is ``step`` on a
-[B, C, N] block with [B]-leading state; ``run`` and ``batched_run`` loop over
-blocks of ``block_size`` samples.
+post-analyze, with the analyzer state threaded pre → post, and the metrics
+go through the plugin's ``finalize_metrics`` where it has one. Every
+function is rank-polymorphic over leading batch dims, so ``batch_step`` is
+``step`` on a [B, C, N] block with [B]-leading state; ``run`` and
+``batched_run`` loop over blocks of ``block_size`` samples.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -29,7 +32,8 @@ from juicy_tpu_torch.models.base import ProcessorDef, get_processor
 from juicy_tpu_torch.runtime.device import resolve_device
 
 
-def _default_finalize(pre, post):
+def _default_finalize(params, pre, post, carry=None):
+    del params, carry
     m = dict(post)
     m["pre_score"] = pre["score"]
     m["post_score"] = post["score"]
@@ -95,8 +99,9 @@ class Plugin:
         pre_state, pre = analyze(state["analyzer"], block, self.sr)
         out, dsp = self.defn.process(p, state["dsp"], block, self.sr)
         post_state, post = analyze(pre_state, out, self.sr)
+        finalize = self.defn.finalize_metrics or _default_finalize
         return out, {"analyzer": post_state, "dsp": dsp}, \
-            _default_finalize(pre, post)
+            finalize(p, pre, post, dsp)
 
     def batch_step(self, params, state, blocks, params_batched: bool = False):
         """`step` over a leading clips axis of `blocks` [B, C, N] and of every
@@ -149,6 +154,84 @@ class Plugin:
             raise ValueError(f"clip length {t} is not a positive multiple of "
                              f"block size {self.block_size}: pad first")
         return t // self.block_size
+
+
+class Chain:
+    """A serial insert chain of plugins (a DAW channel strip). Each stage
+    keeps its own analyzer and DSP state and reports its own metrics, as
+    when the reference plugins are stacked on one track.
+
+    `stages` is a sequence of (processor name or definition, preset), the
+    preset a name or index, None for the defaults, or a dict of param values
+    over the defaults; static params in a dict (texture's ``material``) bind
+    the stage's plugin with ``with_static``."""
+
+    def __init__(self, stages: Sequence[Tuple[Union[str, ProcessorDef], Any]],
+                 sr: float = 48000.0, channels: int = 2, block_size: int = 512):
+        self.plugins = []
+        self.params = []
+        for defn, preset in stages:
+            plug = Plugin(defn, sr, channels, block_size)
+            if isinstance(preset, dict):
+                p, static = plug._split_static(
+                    dict(plug.defn.default_params(), **preset))
+                if static:
+                    plug = plug.with_static(**static)
+                self.params.append(p)
+            elif preset is None:
+                self.params.append(plug.default_params())
+            else:
+                self.params.append(plug.preset(preset))
+            self.plugins.append(plug)
+        self.sr = float(sr)
+        self.channels = int(channels)
+        self.block_size = int(block_size)
+
+    def init_state(self, batch_shape=(), device=None):
+        """One state per stage, each leaf [*batch_shape, ...] on `device`
+        (None is the card)."""
+        return [p.init_state(batch_shape, device) for p in self.plugins]
+
+    def step(self, params_list, states, block):
+        """One block through every stage in order: (out, states', a metrics
+        dict per stage)."""
+        out = block
+        new_states, metrics = [], []
+        for plug, params, st in zip(self.plugins, params_list, states,
+                                    strict=True):
+            out, st, m = plug.step(params, st, out)
+            new_states.append(st)
+            metrics.append(m)
+        return out, new_states, metrics
+
+    def run(self, states, audio):
+        """Stream [..., C, T] block by block through the chain with its
+        bound params. Returns (out, final states, per-stage metrics stacked
+        [nb, ...])."""
+        nb = self.plugins[0].num_blocks(audio)
+        n = self.block_size
+        outs, metrics = [], []
+        for i in range(nb):
+            out, states, m = self.step(self.params, states,
+                                       audio[..., i * n:(i + 1) * n])
+            outs.append(out)
+            metrics.append(m)
+        return (torch.cat(outs, dim=-1), states,
+                [_stack([m[k] for m in metrics]) for k in range(len(states))])
+
+    def batched_run(self, states, clips):
+        """A [B, C, T] corpus, stage-major: each stage streams the whole
+        corpus through its own ``batched_run`` before the next starts (the
+        same result as interleaving: stages talk only through the audio).
+        Returns (out, final states, per-stage metrics stacked [nb, B])."""
+        out = clips
+        new_states, metrics = [], []
+        for plug, params, st in zip(self.plugins, self.params, states,
+                                    strict=True):
+            out, st, m = plug.batched_run(params, st, out)
+            new_states.append(st)
+            metrics.append(m)
+        return out, new_states, metrics
 
 
 def _check_params(params, batch: Optional[int]):

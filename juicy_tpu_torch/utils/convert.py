@@ -38,6 +38,13 @@ def jmap(v01, lo, hi):
     return f32(lo) + as_f32(v01) * span
 
 
+def jmap5(v, smin, smax, tmin, tmax):
+    """Map v from [smin, smax] into [tmin, tmax] (juce::jmap 5-arg form)."""
+    t_span = f32(np.float32(tmax) - np.float32(tmin))
+    s_span = f32(np.float32(smax) - np.float32(smin))
+    return f32(tmin) + t_span * div_const(as_f32(v) - f32(smin), s_span)
+
+
 def jlimit(lo, hi, v):
     """Clamp v into [lo, hi] (juce::jlimit argument order)."""
     return torch.clamp(as_f32(v), f32(lo), f32(hi))

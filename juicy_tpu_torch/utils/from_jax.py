@@ -5,11 +5,12 @@ dicts, batched state after ``vmap``) are dicts, lists and tuples of arrays.
 Given as numpy arrays (``jax.device_get`` or ``np.asarray`` on the JAX side;
 this module imports no JAX), :func:`to_torch` turns them into the port's
 tensors and :func:`to_numpy` turns the port's back. Float32 and int32 leaves
-keep their dtype. A uint32 leaf (texture's LCG state ``rng``) becomes the
-port's u32 carrier, an int64 tensor holding the unsigned value
-(``ops/noise.py``), and comes back as uint32. A Python int (a static
-param such as texture's ``material`` in ``full_params``) stays an int. Any
-other dtype raises rather than converting silently.
+keep their dtype (motion's ``onset_cooldown`` is int32). A uint32 leaf (the
+LCG state ``rng`` of texture and motion) becomes the port's u32 carrier, an
+int64 tensor holding the unsigned value (``ops/noise.py``), and comes back
+as uint32. A Python int (a static param such as texture's ``material`` in
+``full_params``) stays an int. Any other dtype raises rather than
+converting silently. An empty dict (infer's DSP state) stays empty.
 """
 
 from __future__ import annotations

@@ -8,7 +8,8 @@ JAX; on a machine without it, run it as
 (the variable keeps tests/conftest.py from setting up JAX's CPU devices).
 The batch is ragged (not a multiple of the kernels' thread blocks) and mono
 and stereo both run, which chip_smoke.py does not cover; texture runs all
-five materials. The inputs
+five materials, punch and motion two presets or settings each, and the
+seven-stage Chain runs on the card against the CPU. The inputs
 are made here, from a seed, so that the file needs nothing of the JAX
 test harness.
 """
@@ -149,3 +150,95 @@ def test_texture_run_corpus_always_on_card(cuda_device):
     out_n, last_n, _ = run_corpus(plug, params, clips, use_kernel="never")
     assert torch.equal(out_k, out_n)
     assert float((last_k["score"] - last_n["score"]).abs().max()) <= 1e-4
+
+
+# params per case: a preset name, or a dict over the defaults
+_PUNCH_MOTION = [("punch", "Solar Snap"), ("punch", "Apocalypse Tap"),
+                 ("motion", None),
+                 ("motion", dict(microvar=0.9, motiondepth=1.8,
+                                 repeatctrl=0.2, budget=0.9, mix=0.7))]
+
+
+def _params(plug, preset):
+    if isinstance(preset, dict):
+        return dict(plug.default_params(), **{
+            k: torch.tensor(v, dtype=torch.float32) for k, v in preset.items()})
+    return plug.preset(preset) if preset else plug.default_params()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("name,preset", _PUNCH_MOTION)
+def test_punch_motion_stage_kernel_matches_plain(name, preset, channels,
+                                                 cuda_device):
+    """Two streamed blocks: audio and every state leaf bit-equal (motion's
+    rng, onset_cooldown and repetition included), metrics within 1e-5
+    (scores 1e-4); motion's onsets ran inside the blocks in most clips."""
+    plug = Plugin(name, SR, channels, N)
+    params = _params(plug, preset)
+    step = getattr(sk, f"{name}_stage_step")
+    plain = getattr(sk, f"{name}_stage_step_plain")
+    clips = _clips(20 + channels, channels, 2, cuda_device)
+    st_k = st_p = st0 = plug.init_state((B,), cuda_device)
+    before = step.launches
+    for k in range(2):
+        blk = clips[..., k * N:(k + 1) * N]
+        out_k, st_k, m_k = step(params, st_k, blk, SR)
+        out_p, st_p, m_p = plain(params, st_p, blk, SR)
+        torch.cuda.synchronize()
+        assert out_k.is_cuda and out_k.shape == blk.shape
+        assert torch.equal(out_k, out_p)
+        assert set(st_k["dsp"]) == set(st_p["dsp"])
+        for key, v in st_p["dsp"].items():
+            assert st_k["dsp"][key].dtype == v.dtype, key
+            assert torch.equal(st_k["dsp"][key], v), key
+        assert torch.equal(st_k["analyzer"]["onset_cooldown"],
+                           st_p["analyzer"]["onset_cooldown"])
+        for key in m_k:
+            tol = 1e-4 if key.endswith("score") else 1e-5
+            assert float((m_k[key] - m_p[key]).abs().max()) <= tol, key
+    assert step.launches == before + 2
+    if name == "motion":
+        moved = st_k["dsp"]["rng"] != st0["dsp"]["rng"]
+        assert float(moved.float().mean()) > 0.9
+        assert int(st_k["dsp"]["onset_cooldown"].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,preset", [("punch", "Crater Impact"),
+                                         ("motion", None)])
+def test_punch_motion_run_corpus_always_on_card(name, preset, cuda_device):
+    """run_corpus: one launch per block, equal to "never"."""
+    plug = Plugin(name, SR, 2, N)
+    params = _params(plug, preset)
+    step = getattr(sk, f"{name}_stage_step")
+    clips = _clips(5, 2, 3, cuda_device)
+    before = step.launches
+    out_k, last_k, _ = run_corpus(plug, params, clips, use_kernel="always")
+    assert step.launches == before + 3
+    out_n, last_n, _ = run_corpus(plug, params, clips, use_kernel="never")
+    assert torch.equal(out_k, out_n)
+    assert float((last_k["score"] - last_n["score"]).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_chain_on_card_matches_cpu(cuda_device):
+    """The seven-stage Chain's batched_run on the card against the same call
+    on the CPU: audio within -100 dBFS, every stage's metrics within 1e-5
+    of their scale (max(1, |value|))."""
+    from juicy_tpu_torch.runtime.plugin import Chain
+
+    chain = Chain([("punch", "Solar Snap"), ("saturator", "Amber Heat"),
+                   ("texture", None), ("motion", None), ("width", "Prism Arc"),
+                   ("cohere", None), ("infer", "Reference Lens")], SR, 2, N)
+    clips = _clips(6, 2, 2, cuda_device)[:64]
+    out_g, _st, m_g = chain.batched_run(chain.init_state((64,), cuda_device),
+                                        clips)
+    out_c, _st, m_c = chain.batched_run(chain.init_state((64,), "cpu"),
+                                        clips.cpu())
+    diff = float((out_g.cpu().double() - out_c.double()).abs().max())
+    assert diff <= 1e-5, diff
+    for stage_g, stage_c in zip(m_g, m_c, strict=True):
+        for key, v in stage_c.items():
+            d = (stage_g[key].cpu().double() - v.double()).abs()
+            assert bool((d <= 1e-5 * v.double().abs().clamp(min=1.0)).all()), key

@@ -2,7 +2,9 @@
 
 `ops/precise.py` of the port against the numpy path of juicy_tpu's (its
 jax-free oracle), and `utils/convert.py` against juicy_tpu's eager-jnp
-helpers, compared as int32 bit views on a seeded grid plus the edges. The
+helpers, compared as int32 bit views on a seeded grid plus the edges
+(sin32 over ±π/2, ±π and 2π..7.2, the reach of motion's LFO phase;
+exp32_narrow over [−0.7, 0]; onepole_coeff32 over motion's cutoffs). The
 serial scans are held to a float32 numpy loop. One subprocess test checks
 that the port imports neither JAX nor juicy_tpu.
 """
@@ -51,6 +53,21 @@ PRECISE_CASES = {
     "log2_32": (tp.log2_32, jp.log2_32,
                 np.abs(_grid(1e-30, 3e38, [1.0, 2.0, 1.4142135, 1e-38], 3))),
     "tanh32": (tp.tanh32, jp.tanh32, _grid(-12.0, 12.0, EDGES + [88.0, -88.0], 4)),
+    "sin32_half_pi": (tp.sin32, jp.sin32,
+                      _grid(-np.pi / 2, np.pi / 2, [0.0, 1.5707964, -1.5707964], 13)),
+    "sin32_pi": (tp.sin32, jp.sin32,
+                 _grid(-np.pi, np.pi, [3.1415927, -3.1415927, 3.1415925], 14)),
+    "sin32_wide": (tp.sin32, jp.sin32,
+                   np.concatenate([_grid(2 * np.pi, 7.2, [6.2831855, 7.2], 15),
+                                   -_grid(2 * np.pi, 7.2, [6.2831855, 7.2], 16)])),
+    "exp32_narrow": (tp.exp32_narrow, jp.exp32_narrow,
+                     _grid(-0.7, 0.0, [0.0, -0.7, -0.5497787], 17)),
+    "onepole_coeff32": (lambda f: tp.onepole_coeff32(f, SR, 4200.0),
+                        lambda f: jp.onepole_coeff32(f, SR, 4200.0),
+                        _grid(120.0, 4200.0, [120.0, 900.0, 4200.0], 18)),
+    "onepole_coeff32_wide": (lambda f: tp.onepole_coeff32(f, 32000.0, 4200.0),
+                             lambda f: jp.onepole_coeff32(f, 32000.0, 4200.0),
+                             _grid(120.0, 4200.0, [120.0, 4200.0], 19)),
 }
 
 
@@ -82,6 +99,9 @@ CONVERT_CASES = {
              _grid(0.0, 1.0, [0.0, 0.55, 1.0], 9)),
     "jlimit": (lambda v: tc.jlimit(0.0, 0.6, v), lambda v: jc.jlimit(0.0, 0.6, v),
                _grid(-1.0, 1.0, [0.0, 0.6, 0.6000001], 10)),
+    "jmap5": (lambda v: tc.jmap5(v, 0.0, 2.0, 0.75, 1.6),
+              lambda v: jc.jmap5(v, 0.0, 2.0, 0.75, 1.6),
+              _grid(0.0, 2.0, [0.0, 1.0, 2.0], 20)),
 }
 
 
@@ -127,8 +147,10 @@ def test_port_imports_no_jax():
     code = ("import importlib, pkgutil, sys, juicy_tpu_torch; "
             "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
             "juicy_tpu_torch.__path__, 'juicy_tpu_torch.')]; "
-            "assert 'juicy_tpu_torch.models.texture' in sys.modules; "
-            "assert 'juicy_tpu_torch.ops.noise' in sys.modules; "
+            "assert all(f'juicy_tpu_torch.{m}' in sys.modules for m in ("
+            "'models.texture', 'models.punch', 'models.motion', 'models.width', "
+            "'models.cohere', 'models.infer', 'ops.noise', 'ops.delays', "
+            "'ops.shapers', 'runtime.plugin')); "
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules); "
             "assert not any(m == 'juicy_tpu' or m.startswith('juicy_tpu.') "
             "for m in sys.modules)")

@@ -4,7 +4,8 @@
 
 Runs ``juicy_tpu_torch.parallel.corpus.run_corpus`` at chip_smoke.py's full
 width (4096 stereo clips of 94 blocks of 512 samples at 48 kHz, inputs made
-on the card as there): one warm-up run, one timed run, then one run under
+on the card as there: punch and motion get its burst input, the others its
+noise over a sine): one warm-up run, one timed run, then one run under
 ``torch.profiler``. Prints the card's name and power limit, the timed and
 profiled walls, the profiled run's device busy time (the sum of its
 kernels' times) by kernel name, its count of ``cudaLaunchKernel`` calls, and
@@ -26,13 +27,13 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from chip_smoke import (BATCH, BLOCK, CHANNELS, NUM_BLOCKS, PRESET,  # noqa: E402
-                        SR, make_batch)
+                        PUNCH_PRESET, SR, make_batch, make_clicks)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--plugin", choices=("saturator", "texture"),
-                    default="texture")
+    ap.add_argument("--plugin", choices=("punch", "saturator", "texture",
+                                         "motion"), default="texture")
     ap.add_argument("--material", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -47,13 +48,17 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     plugin = Plugin(args.plugin, SR, CHANNELS, BLOCK)
+    device = torch.device("cuda", 0)
     if args.plugin == "texture":
         plugin = plugin.with_static(material=args.material)
-        params = plugin.default_params()
+    params = {"saturator": lambda: plugin.preset(PRESET),
+              "punch": lambda: plugin.preset(PUNCH_PRESET)}.get(
+                  args.plugin, plugin.default_params)()
+    if args.plugin in ("punch", "motion"):
+        clips = make_clicks(BATCH, CHANNELS, NUM_BLOCKS * BLOCK, device,
+                            seed=23)
     else:
-        params = plugin.preset(PRESET)
-    clips = make_batch(BATCH, CHANNELS, NUM_BLOCKS * BLOCK,
-                       torch.device("cuda", 0))
+        clips = make_batch(BATCH, CHANNELS, NUM_BLOCKS * BLOCK, device)
 
     def run():
         run_corpus(plugin, params, clips)
