@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's corpus paths at full width: punch, saturator, texture and
-motion corpus scoring (``juicy_tpu_torch.parallel.corpus.run_corpus``), 4096
-clips of 94 blocks of 512 stereo samples at 48 kHz, and the seven-stage
-``Chain``; inputs made on the card from a seed. Phases, each of which raises
-on failure:
+Drives the port's corpus paths at full width: full-chain corpus scoring
+(``juicy_tpu_torch.parallel.corpus.run_corpus_chain``, the main path: 8192
+clips of 94 blocks of 512 stereo samples at 48 kHz through the seven-stage
+chain kernel), punch, saturator, texture and motion corpus scoring
+(``run_corpus``, 4096 clips of the same length), and the seven-stage
+``Chain`` and chain executor; inputs made on the card from a seed. Phases,
+each of which raises on failure:
 
 1.  the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2.  build the CUDA kernels from ``juicy_tpu_torch/csrc`` (one nvcc per
@@ -28,6 +30,13 @@ on failure:
 3d. the motion stage kernel the same way at its defaults, with ``rng`` and
     ``onset_cooldown`` among the state leaves and pass 1's LCG rolled in
     most clips;
+3e. the chain kernel against its plain version, two blocks at B = 4096,
+    N = 512 on the burst input, for bench.py's chain (texture gel) and the
+    same chain with wood (the ring): audio <= -120 dBFS, every state leaf
+    bit-equal (the LCG states, cooldowns, the texture ring and the Haas
+    window included), the lanes' onset counts and cooldowns equal, every
+    stage's metrics within 1e-5 of max(1, |value|); the same four times as
+    3b;
 4.  ``run_corpus`` saturator at full width: exactly one kernel launch per
     block, finite output, scores in [0, 100]; the warm wall time and rate;
     the timed run's first 256 clips against ``use_kernel="never"`` (plain
@@ -39,8 +48,18 @@ on failure:
     width on the burst input, checked the same way;
 4d. the seven-stage ``Chain`` of bench.py (``Chain.batched_run``) on the
     card at B = 256, two blocks, against the same call on the CPU: audio
-    <= -100 dBFS, every stage's metrics within 1e-5 of max(1, |value|). It
-    has no kernel of its own yet: this checks the models' device placement.
+    <= -100 dBFS, every stage's metrics within 1e-5 of max(1, |value|); and
+    the block-major executor (``fused_chain_stream``) on the card against
+    ``Chain.batched_run`` there, bit for bit;
+4e. ``run_corpus_chain`` on bench.py's chain at full width (B = 8192, 94
+    blocks of 512, ``metrics="final"``): exactly one chain-kernel launch per
+    block and no other kernel launch, finite output, scores in [0, 100]; the
+    warm wall time and rate; the kernel's time per block at this width, its
+    bound and the plain version's time; then, at a depth that fits the time
+    limit, ``use_kernel="always"`` against ``"never"`` on the first 256 clips
+    × 8 blocks (<= -100 dBFS, last-block scores within 1e-3), and the timed
+    run's first 256 clips × 8 blocks equal to the "always" run bit for bit
+    (the chain is causal).
 
 Before each corpus path every launch count is set to 0, and read after it.
 The line before the last is a JSON summary of the kernels, with each one's
@@ -72,6 +91,9 @@ CHAIN = [("punch", "Solar Snap"), ("saturator", "Amber Heat"),
          ("texture", None), ("motion", None), ("width", "Prism Arc"),
          ("cohere", None), ("infer", "Reference Lens")]        # bench.py:41-49
 CHAIN_BATCH = 256
+CHAIN_CORPUS_BATCH = 8192        # bench.py:798, the full_chain row
+CHAIN_CHECK_BLOCKS = 8
+CHAIN_MATERIALS = (0, 2)         # gel (bench.py's chain) and wood (bench.py:796)
 MATERIALS = ("gel", "metal", "wood", "plastic", "flesh")
 CORPUS_MATERIALS = (0, 1, 2)      # bench.py's texture rows
 REFERENCE_MATERIAL = 1            # the texture row of the kernels line
@@ -92,7 +114,10 @@ F32_OPS_PER_S = 67e12
 # punch_sample); motion's pass 1 per clip-sample and pass 2 per
 # channel-sample (motion.cuh motion_p1, motion_p2). Left out, as under a
 # thousandth of the work here: motion's three draws on an onset (12 ops, at
-# most one onset per 1920 samples) and the once-per-block terms.
+# most one onset per 1920 samples) and the once-per-block terms. The chain
+# kernel adds width per clip-sample (width.cuh: the dip test, M/S, both
+# mixes), cohere's analysis per clip-sample and its render per
+# channel-sample (cohere.cuh), and infer's trim per channel-sample.
 LANE_OPS = 42
 SAT_OPS = 40
 TEX_OPS = 84
@@ -101,6 +126,10 @@ TEX_NMAT = (2, 8, 9, 9, 4)
 PUNCH_OPS = 98
 MOTION_P1_OPS = 10
 MOTION_P2_OPS = 109
+WIDTH_OPS = 22
+COHERE_A_OPS = 17
+COHERE_R_OPS = 23
+INFER_OPS = 1
 
 
 def make_batch(batch, channels, t, device, seed=7):
@@ -196,6 +225,24 @@ def motion_bound(b, c, n):
                                   + c * MOTION_P2_OPS))
 
 
+def chain_bound(b, c, n, mode, tex_delay, haas_delay):
+    """The chain kernel per block: audio in and out; every stage's state in
+    and out (texture's ring rows as in texture_bound; the Haas ring's rows
+    this block reads before it writes them, min(delay, n), and the n it
+    writes; cohere's context fit out); seven lanes in and 14 out."""
+    state = (2 * c + c + (9 + TEX_NMAT[mode]) * c + 3 * c + c   # per clip
+             + 1 + 12 + 5)
+    nbytes = 4 * (2 * b * c * n + 2 * state * b + b + 7 * 5 * b
+                  + 14 * 15 * b + b * (min(haas_delay, n) + n))
+    if mode in (2, 3):
+        rows_in = min(math.ceil(tex_delay) + 1, n + 1)
+        nbytes += 4 * b * c * (rows_in + n)
+    per_clip = (14 * LANE_OPS + MOTION_P1_OPS + WIDTH_OPS + COHERE_A_OPS
+                + c * (PUNCH_OPS + SAT_OPS + TEX_OPS + TEX_MAT_OPS[mode]
+                       + MOTION_P2_OPS + COHERE_R_OPS + INFER_OPS))
+    return bound(nbytes, b * n * per_clip)
+
+
 def stage_steps():
     """Every stage kernel's wrapper, by name; each counts its launches."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
@@ -204,8 +251,16 @@ def stage_steps():
             "texture": sk.texture_stage_step, "motion": sk.motion_stage_step}
 
 
+def chain_step():
+    """The chain kernel's wrapper; it counts the launches of its step and
+    its stream."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    return ck.chain_kernel_step
+
+
 def reset_launches():
-    for step in stage_steps().values():
+    for step in (*stage_steps().values(), chain_step()):
         step.launches = 0
 
 
@@ -393,7 +448,8 @@ def corpus_run(tag, plugin, params, clips, step):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = step.launches
-    other = sum(s.launches for s in stage_steps().values()) - launches
+    other = sum(s.launches for s in stage_steps().values()) - launches \
+        + chain_step().launches
     if launches != NUM_BLOCKS or other:
         raise AssertionError(f"{tag}: {launches} kernel launches (and {other} "
                              f"of another kernel) for {NUM_BLOCKS} blocks")
@@ -527,7 +583,9 @@ def phase_punch_motion_corpus(device):
 
 
 def phase_chain(device):
-    """4d: the seven-stage Chain on the card against the CPU."""
+    """4d: the seven-stage Chain on the card against the CPU, and the
+    block-major executor against Chain.batched_run on the card."""
+    from juicy_tpu_torch.runtime.chain_fused import fused_chain_stream
     from juicy_tpu_torch.runtime.plugin import Chain
 
     chain = Chain(CHAIN, SR, CHANNELS, BLOCK)
@@ -558,6 +616,200 @@ def phase_chain(device):
           f"scale ({t_card:.1f} s on the card, {t_cpu:.1f} s on the CPU)")
     if db > -100.0:
         raise AssertionError(f"chain: card vs CPU {db:.1f} dBFS")
+    t0 = time.perf_counter()
+    out_f, _st, m_f = fused_chain_stream(
+        chain, chain.init_state((CHAIN_BATCH,), device), clips)
+    torch.cuda.synchronize()
+    t_fused = time.perf_counter() - t0
+    if not torch.equal(out_f, out_g) or any(
+            not torch.equal(mf[key], v) for mf, mg in zip(m_f, m_g)
+            for key, v in mg.items()):
+        raise AssertionError("fused_chain_stream differs from "
+                             "Chain.batched_run on the card")
+    print(f"fused_chain_stream on the card equals Chain.batched_run bit for "
+          f"bit ({t_fused:.1f} s)")
+
+
+def chain_stages(material):
+    """bench.py's chain with texture `material` (gel is bench.py's)."""
+    stages = list(CHAIN)
+    stages[2] = ("texture", {"material": material})
+    return stages
+
+
+def chain_kernel_ms(chain, states, blk):
+    """The chain kernel's ms per block on `blk` [B, 2, N]: the launch alone
+    on prepared buffers, and with the layout permutes each way."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    b, device = blk.shape[0], blk.device
+    kc = ck.KernelChain(chain, states, b, device)
+    xt = blk.permute(2, 1, 0).contiguous()
+    out_t = torch.empty_like(xt)
+    fin, acc, fit = (v[0] for v in ck._lane_buffers(1, b, device))
+    prev = ck.lane_seed([st["analyzer"] for st in states], b, device)
+
+    def with_layout():
+        kc.launch(blk.permute(2, 1, 0).contiguous(), out_t, prev, fin, acc,
+                  fit)
+        return out_t.permute(2, 1, 0).contiguous()
+
+    return (cuda_ms(lambda: kc.launch(xt, out_t, prev, fin, acc, fit), 20),
+            cuda_ms(with_layout, 20))
+
+
+def chain_kernel_vs_plain(device, mode, x):
+    """3e for one material: the kernel route and the plain route over two
+    blocks from the same state; then the times per block."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.models import texture as tex
+    from juicy_tpu_torch.models import width as wid
+    from juicy_tpu_torch.runtime.plugin import Chain
+
+    b, n = BATCH, BLOCK
+    chain = Chain(chain_stages(mode), SR, CHANNELS, n)
+    st0 = chain.init_state((b,), device)
+    clips = x[..., :2 * n]
+    out_k, dsp_k, fin_k, acc_k, fit_k = ck._run_cuda(chain, st0, clips, True)
+    out_p, dsp_p, fin_p, acc_p, fit_p = ck._run_plain(chain, st0, clips, True)
+    tag = f"chain {MATERIALS[mode]}"
+    db = residual_dbfs(out_k, out_p)
+    if db > -120.0:
+        raise AssertionError(f"{tag}: kernel vs plain {db:.1f} dBFS")
+    for s, (dk, dp) in enumerate(zip(dsp_k, dsp_p, strict=True)):
+        if set(dk) != set(dp):
+            raise AssertionError(f"{tag}: stage {s} state keys differ")
+        for key, v in dp.items():
+            if dk[key].dtype != v.dtype or not torch.equal(dk[key], v):
+                raise AssertionError(f"{tag}: stage {s} state {key} differs")
+    # fin row 4 = the lanes' cooldowns, acc row 1 = their onset counts
+    if not torch.equal(fin_k[:, :, 4], fin_p[:, :, 4]):
+        raise AssertionError(f"{tag}: lane cooldowns differ")
+    if not torch.equal(acc_k[:, :, 1], acc_p[:, :, 1]):
+        raise AssertionError(f"{tag}: onset counts differ")
+    an0 = [st["analyzer"] for st in st0]
+    an_k, m_k = ck.finalize_stream(chain, an0, fin_k, acc_k, fit_k)
+    an_p, m_p = ck.finalize_stream(chain, an0, fin_p, acc_p, fit_p)
+    worst = 0.0
+    for s, (mk, mp) in enumerate(zip(m_k, m_p, strict=True)):
+        for key, v in mp.items():
+            rel = float(((mk[key].double() - v.double()).abs()
+                         / v.double().abs().clamp(min=1.0)).max())
+            worst = max(worst, rel)
+            if rel > 1e-5:
+                raise AssertionError(f"{tag}: stage {CHAIN[s][0]} metric "
+                                     f"{key} off by {rel:.3g} of its scale")
+        for key, v in an_p[s].items():
+            if not torch.equal(an_k[s][key], v):
+                raise AssertionError(f"{tag}: analyzer {s} state {key} "
+                                     f"differs")
+    onsets = acc_k[:, :, 1].sum(dim=-1)                 # [2 blocks, 14 lanes]
+    rolled = float((dsp_k[3]["rng"] != st0[3]["dsp"]["rng"]).float().mean())
+    print(f"{tag} 2 blocks at B={b}: audio {db:.1f} dBFS, every state leaf "
+          f"bit-equal, lane onsets per block {onsets.int().tolist()}, motion "
+          f"rng rolled in {rolled:.1%} of clips, metrics within {worst:.3g}")
+    if rolled < 0.9:
+        raise AssertionError(f"{tag}: motion rolled the LCG in only "
+                             f"{rolled:.1%} of clips")
+
+    blk = x[..., :n]
+    ms, layout_ms = chain_kernel_ms(chain, st0, blk)
+    step_ms = cuda_ms(lambda: ck.chain_kernel_step(chain, st0, blk), 5)
+    plain_ms = cuda_ms(lambda: ck.chain_kernel_step_plain(chain, st0, blk), 1)
+    params = [p.full_params(pr) for p, pr in zip(chain.plugins, chain.params)]
+    tex_delay = float(tex.material_consts(mode, tex.common_consts(
+        params[2], SR, mode)[1], SR, tex.waveguide_size(SR))["delay_samp"]) \
+        if mode in tex.WAVE_MODES else 0.0
+    haas_delay = int(wid.delay_samples(params[4]["haasMs"], SR))
+    bound_ms, bound_by = chain_bound(b, CHANNELS, n, mode, tex_delay,
+                                     haas_delay)
+    print(f"{tag} per block at B={b}, N={n}: kernel {ms:.4f} ms alone, "
+          f"{layout_ms:.4f} ms with layout, whole step {step_ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    return {"max_abs_err": max_diff(out_k, out_p), "ms": ms,
+            "layout_ms": layout_ms, "step_ms": step_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def phase_chain_kernel_vs_plain(device):
+    """3e: the chain kernel against its plain version, gel and wood."""
+    x = make_clicks(BATCH, CHANNELS, 2 * BLOCK, device, seed=37,
+                    period=2 * BLOCK)
+    return {MATERIALS[mode]: chain_kernel_vs_plain(device, mode, x)
+            for mode in CHAIN_MATERIALS}
+
+
+def phase_chain_corpus(device):
+    """4e: run_corpus_chain at full width, the main path."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.models import width as wid
+    from juicy_tpu_torch.parallel.corpus import run_corpus_chain
+    from juicy_tpu_torch.runtime.plugin import Chain
+
+    b, n = CHAIN_CORPUS_BATCH, BLOCK
+    chain = Chain(CHAIN, SR, CHANNELS, n)
+    clips = make_clicks(b, CHANNELS, NUM_BLOCKS * n, device, seed=31)
+    run_corpus_chain(chain, clips)                   # warm-up
+    torch.cuda.synchronize()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    out, ms, agg = run_corpus_chain(chain, clips)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = chain_step().launches
+    other = sum(s.launches for s in stage_steps().values())
+    if launches != NUM_BLOCKS or other:
+        raise AssertionError(f"chain corpus: {launches} chain-kernel "
+                             f"launches (and {other} of another kernel) for "
+                             f"{NUM_BLOCKS} blocks")
+    if tuple(out.shape) != tuple(clips.shape) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError("chain corpus output is not finite or has the "
+                             "wrong shape")
+    for s, m in enumerate(ms):
+        for key, v in m.items():
+            if tuple(v.shape) != (b,) or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"stage {s} metric {key} is not finite "
+                                     f"[B]")
+        for key in ("score", "pre_score", "post_score"):
+            if not bool(((m[key] >= 0) & (m[key] <= 100)).all()):
+                raise AssertionError(f"stage {s} {key} outside [0, 100]")
+    t = clips.shape[-1]
+    print(f"run_corpus_chain B={b} T={t}: {wall:.4f} s warm, "
+          f"{b * t / SR / wall:.1f} audio-s/s, mean score "
+          f"{float(agg['score']['mean']):.4f}")
+
+    blk = clips[..., :n]
+    st0 = chain.init_state((b,), device)
+    kernel_ms, _layout_ms = chain_kernel_ms(chain, st0, blk)
+    plain_ms = cuda_ms(lambda: ck.chain_kernel_step_plain(chain, st0, blk), 1)
+    bound_ms, bound_by = chain_bound(
+        b, CHANNELS, n, 0, 0.0,
+        int(wid.delay_samples(chain.params[4]["haasMs"], SR)))
+    print(f"chain kernel per block at B={b}, N={n}: {kernel_ms:.4f} ms alone, "
+          f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+
+    t0 = time.perf_counter()
+    sub = clips[:CHECK_CLIPS, :, :CHAIN_CHECK_BLOCKS * n]
+    out_a, ms_a, _ = run_corpus_chain(chain, sub, use_kernel="always")
+    out_n, ms_n, _ = run_corpus_chain(chain, sub, use_kernel="never")
+    torch.cuda.synchronize()
+    db = residual_dbfs(out_a, out_n)
+    ds = max(max_diff(ma["score"], mn["score"]) for ma, mn in zip(ms_a, ms_n))
+    same = torch.equal(out[:CHECK_CLIPS, :, :CHAIN_CHECK_BLOCKS * n], out_a)
+    print(f"chain: always vs never on {CHECK_CLIPS} clips x "
+          f"{CHAIN_CHECK_BLOCKS} blocks: audio {db:.1f} dBFS, last-block "
+          f"scores {ds:.3g}; timed run equal to always there: {same} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if db > -100.0 or ds > 1e-3:
+        raise AssertionError("chain: the kernel path disagrees with the "
+                             "block-major executor")
+    if not same:
+        raise AssertionError("chain: the timed run's first clips differ "
+                             "from the check run")
+    return {"launches": launches, "wall": wall, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 def phase_texture_corpus(device):
@@ -589,6 +841,8 @@ def main():
     sat_timing = phase_kernel_vs_plain(device, plugin, params)
     tex_timing = phase_texture_kernel_vs_plain(device)
     pm_timing = phase_punch_motion_kernels(device)
+    chain_timing = phase_chain_kernel_vs_plain(device)
+    chain_corpus = phase_chain_corpus(device)
     sat_launches = phase_corpus(device, plugin, params)
     tex_launches = phase_texture_corpus(device)
     pm_launches = phase_punch_motion_corpus(device)
@@ -628,6 +882,19 @@ def main():
         "replaces": "juicy_tpu/kernels/stage_kernels.py:1490",
         "launches": pm_launches["motion"],
         **pm_timing["motion"],
+    }, {
+        "name": "chain",
+        "route": "cuda",
+        "source": "juicy_tpu_torch/csrc/chain.cu",
+        "replaces": "juicy_tpu/kernels/chain_kernel.py:1268",
+        "launches": chain_corpus["launches"],
+        "max_abs_err": max(v["max_abs_err"] for v in chain_timing.values()),
+        "ms": chain_corpus["ms"], "plain_ms": chain_corpus["plain_ms"],
+        "bound_ms": chain_corpus["bound_ms"],
+        "bound_by": chain_corpus["bound_by"], "library_ms": None,
+        "timed_batch": CHAIN_CORPUS_BATCH,
+        "corpus_wall_s": chain_corpus["wall"],
+        "by_material_b4096": chain_timing,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

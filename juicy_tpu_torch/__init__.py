@@ -8,7 +8,8 @@ kernels as CUDA C++ written for Hopper (``csrc/``, built at first use by
 Ported so far (ROADMAP.md lists the rest): the drift-pinned numerics and the
 LCG noise, the analyzer, ``Plugin`` and ``Chain`` with all seven processors
 (texture with a static material), the punch, saturator, texture and motion
-stage kernels and ``run_corpus``.
+stage kernels and ``run_corpus``, the chain kernel, the block-major chain
+executor and ``run_corpus_chain``.
 Every entry point runs on the CUDA card unless the caller passes another
 ``device`` (``runtime/device.py``); ``device="cpu"`` is the plain route.
 """
@@ -19,11 +20,13 @@ from juicy_tpu_torch.kernels.stage_kernels import (
     punch_stage_step_plain, saturator_stage_step, saturator_stage_step_plain,
     texture_stage_step, texture_stage_step_plain)
 from juicy_tpu_torch.models import get_processor
-from juicy_tpu_torch.parallel.corpus import corpus_metrics, run_corpus
+from juicy_tpu_torch.parallel.corpus import (corpus_metrics, run_corpus,
+                                             run_corpus_chain)
 from juicy_tpu_torch.runtime.plugin import Chain, Plugin
 
 __all__ = ["Chain", "Plugin", "analyze", "analyzer_init", "corpus_metrics",
            "get_processor", "motion_stage_step", "motion_stage_step_plain",
            "punch_stage_step", "punch_stage_step_plain", "run_corpus",
+           "run_corpus_chain",
            "saturator_stage_step", "saturator_stage_step_plain",
            "texture_stage_step", "texture_stage_step_plain"]

@@ -23,23 +23,9 @@
 
 #include "lane.cuh"
 #include "precise.cuh"
+#include "saturator.cuh"
 
 namespace juicy {
-
-struct SatConsts {
-  float in_gain, asym, tone_c, out_gain, mix;
-};
-
-// drive -> asymmetric skew -> tanh -> tone one-pole -> output gain -> mix
-__device__ __forceinline__ float sat_sample(float d, float& tone,
-                                            const SatConsts& p) {
-  const float driven = d * p.in_gain;
-  const float skewed = driven + p.asym * driven * driven;
-  const float soft = tanh32(skewed);
-  tone = tone + p.tone_c * (soft - tone);
-  const float wet = tone * p.out_gain;
-  return d + p.mix * (wet - d);
-}
 
 // x, out: [N, C, B]; tone_in, tone_out: [C, B]; lane_in, *_fin: [5, B];
 // *_acc: [10, B]. Mono (C = 1) analyzes r = l.

@@ -127,6 +127,10 @@ def load_library() -> ctypes.CDLL:
     lib.juicy_motion_stage.argtypes = (
         [ptr] * 15 + [i32] * 5 + [ptr, i32, ptr])
     lib.juicy_motion_stage.restype = i32
+    lib.juicy_chain_block.argtypes = (
+        [ptr] * 5 + [i32] * 2 + [ptr] * 17 + [i32] * 7 + [u32] * 2
+        + [i32] * 2 + [ptr])
+    lib.juicy_chain_block.restype = i32
     lib.juicy_cuda_error_string.argtypes = [i32]
     lib.juicy_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,0 +1,544 @@
+"""The seven-stage chain in one kernel launch per block: PyTorch port of
+juicy_tpu/kernels/chain_kernel.py (``chain_kernel_step``,
+``chain_kernel_stream``, ``_finalize_block``, ``_finalize_stream``).
+
+The chain is the canonical one, punch → saturator → texture → motion →
+width → cohere → infer (``CHAIN_ORDER``), stereo, with one static texture
+material; ``supports_chain_kernel`` says whether a ``Chain`` is such a chain.
+``chain_kernel_step(chain, states, block)`` and ``chain_kernel_stream(chain,
+states, clips, metrics, return_audio)`` keep the JAX contracts: per-stage
+states in the ``Chain`` form in and out, ``(out, new_states, per-stage
+metrics)`` with metrics leaves ``[B]`` (step) or ``[nb, B]`` (stream, or
+the last block only under ``metrics="final"``, or None under ``"none"``).
+
+For CUDA tensors each block is one launch of ``csrc/chain.cu``
+(``KernelChain``): the state goes to kernel form once per call (texture's
+ring time-major ``[L, C, B]``, the LCG states as int32 bits, the Haas window
+as a ring ``[D, B]``, the analyzer states as the post-lane rows the first
+block's pre lanes start from), stays on the card and is updated in place,
+and comes back once. The stream permutes the corpus to ``[T, C, B]`` once and
+back once, and writes each block's 14 lanes (7 analyzers × pre/post) into
+stacked ``fin [nb, 14, 5, B]`` / ``acc [nb, 14, 10, B]``. For CPU tensors the
+plain version runs (``chain_block_plain``): each model's ``process`` between a
+serial pre lane and a serial post lane, in chain order, on the ``Chain``
+state form: the kernel's function in the kernel's lane order. Any other
+device raises, and neither route gives way to the other.
+
+Then the score formulas: ``finalize_block`` per block, ``finalize_stream``
+once over all 14 lanes × nb blocks, with the repetition/fatigue EMA pair run
+serially over 2·nb steps for all seven analyzers at once, so that the
+stream's metrics are bit-equal to ``finalize_block`` applied block by block.
+(JAX's stream path reassociates that EMA with an associative scan, about
+1e-6 from the serial order.)
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from juicy_tpu_torch import analyzer as _an
+from juicy_tpu_torch.kernels import stage_kernels as sk
+from juicy_tpu_torch.models import cohere as _cohere
+from juicy_tpu_torch.models import motion as _motion
+from juicy_tpu_torch.models import texture as _tex
+from juicy_tpu_torch.models import width as _width
+from juicy_tpu_torch.ops import noise as _noise
+from juicy_tpu_torch.ops.precise import F32, f32, onepole_narrow
+from juicy_tpu_torch.runtime.plugin import _default_finalize
+from juicy_tpu_torch.utils.convert import db_to_gain, jmap
+
+CHAIN_ORDER = ("punch", "saturator", "texture", "motion", "width",
+               "cohere", "infer")
+#: analyzer lanes per block: stage i's pre lane is slot 2i, its post 2i + 1
+N_LANES = 2 * len(CHAIN_ORDER)
+#: floats per stage in a constant row (csrc/chain.cu's offsets)
+_TEX_CONSTS = 16 + 25
+_OFF_WIDTH = 7 + 13 + 5 + _TEX_CONSTS + 24
+N_CONSTS = _OFF_WIDTH + 15
+
+
+class ChainKernelUnsupported(ValueError):
+    """Raised when a chain cannot run on the chain kernel."""
+
+
+def _check_chain(chain) -> int:
+    """The chain's static texture material, or ChainKernelUnsupported."""
+    names = tuple(p.defn.name for p in chain.plugins)
+    if names != CHAIN_ORDER:
+        raise ChainKernelUnsupported(f"stage order {names} != {CHAIN_ORDER}")
+    if chain.channels != 2:
+        raise ChainKernelUnsupported("the chain kernel is stereo-only")
+    for plug, params in zip(chain.plugins, chain.params):
+        for key, v in params.items():
+            if torch.as_tensor(v).ndim:
+                raise ChainKernelUnsupported(
+                    f"{plug.defn.name} param {key!r} is batched: the chain "
+                    f"kernel takes one setting per stage")
+    mode = _tex.static_material(chain.plugins[2].full_params(chain.params[2]))
+    if mode is None:
+        raise ChainKernelUnsupported(
+            "per-clip texture materials are not ported to the chain kernel "
+            "(ROADMAP.md, Queue 1 item 7: materials=)")
+    return max(0, min(4, mode))
+
+
+def supports_chain_kernel(chain) -> bool:
+    try:
+        _check_chain(chain)
+        return True
+    except ChainKernelUnsupported:
+        return False
+
+
+# ---------------------------------------------------------------------------
+# Constants: one float32 row, every stage's in chain order (csrc/chain.cu)
+# ---------------------------------------------------------------------------
+
+def back_param_list(params, sr: float, n: int):
+    """The back half's constants as f32 Python floats, in JAX's
+    ``_back_pvec`` order (after its lane constants): width, the mono-safety
+    limit, mix, output gain, the Haas delay in whole samples; cohere's
+    220/2400 Hz coefficients, match, learn, decay, tail, mix, output gain;
+    infer's trim gain; 1/n. `params` are the seven stages' full params."""
+    w, co, inf = params[4], params[5], params[6]
+    vals = [w["width"], jmap(w["monoSafe"], 1.0, 0.35), w["mix"],
+            db_to_gain(w["output"]), _width.delay_samples(w["haasMs"], sr),
+            *_cohere.band_coeffs(sr), co["match"], co["learn"], co["decay"],
+            co["tail"], co["mix"], db_to_gain(co["output"]),
+            db_to_gain(inf["trim"]), 1.0 / max(1, n)]
+    return [f32(float(v)) for v in vals]
+
+
+def _full_params(chain):
+    return [p.full_params(pr) for p, pr in zip(chain.plugins, chain.params)]
+
+
+def _chain_key(chain):
+    return tuple(tuple(sorted((k, float(v)) for k, v in full.items()))
+                 for full in _full_params(chain))
+
+
+@functools.lru_cache(maxsize=32)
+def _constants_cached(key, sr: float, n: int) -> np.ndarray:
+    params = [{k: torch.tensor(f32(v), dtype=F32) for k, v in stage}
+              for stage in key]
+    mode = max(0, min(4, _tex.static_material(params[2])))
+    tex = sk.tex_param_list(params[2], sr, mode)
+    vals = (list(sk._lane_consts(sr)) + sk.punch_param_list(params[0], sr)
+            + list(sk._sat_scalars(params[1], sr)[7:])
+            + tex + [0.0] * (_TEX_CONSTS - len(tex))
+            + sk.motion_param_list(params[3], sr)
+            + back_param_list(params, sr, n))
+    if len(vals) != N_CONSTS:
+        raise AssertionError(f"{len(vals)} chain constants, expected "
+                             f"{N_CONSTS}")
+    arr = np.asarray(vals, dtype=np.float32)
+    arr.setflags(write=False)
+    return arr
+
+
+def chain_constants(chain) -> np.ndarray:
+    """Every stage's constants as one float32 array in csrc/chain.cu's
+    order: the 7 lane constants, punch's (``punch_param_list``), the
+    saturator's (``_sat_scalars``), texture's (``tex_param_list``, padded to
+    41), motion's (``motion_param_list``), then ``back_param_list``. Worked
+    out once per (params, sr, block size) and cached."""
+    return _constants_cached(_chain_key(chain), chain.sr, chain.block_size)
+
+
+@functools.lru_cache(maxsize=32)
+def _constants_on(key, sr: float, n: int, device: str) -> torch.Tensor:
+    return torch.tensor(_constants_cached(key, sr, n), device=device)
+
+
+# ---------------------------------------------------------------------------
+# Kernel form of the chain state and the launch
+# ---------------------------------------------------------------------------
+
+def _leaf(t, shape, dtype, device, name):
+    """A private contiguous copy of a state leaf, checked."""
+    t = torch.as_tensor(t)
+    if tuple(t.shape) != shape or t.dtype != dtype or t.device != device:
+        raise ValueError(f"chain state {name!r} must be {dtype} {shape} on "
+                         f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def lane_seed(an_states, b: int, device) -> torch.Tensor:
+    """The lanes a first block's pre lanes start from, ``[14, 5, B]``: each
+    analyzer state's carry rows (``pack_lane``) at its post-lane slot."""
+    seed = torch.zeros((N_LANES, 5, b), dtype=F32, device=device)
+    for i, st in enumerate(an_states):
+        seed[2 * i + 1] = sk.pack_lane(st, b).to(device)
+    return seed
+
+
+class KernelChain:
+    """The chain's state in kernel form on the card, packed once per call,
+    and the launch of ``juicy_chain_block`` (csrc/chain.cu) for one block.
+    The state tensors are the wrapper's own copies, updated in place block
+    after block; texture's ring write index and the Haas ring's write head
+    are block-uniform host integers that advance by N per launch."""
+
+    def __init__(self, chain, states: Sequence[Dict], b: int, device):
+        self.mode = mode = _check_chain(chain)
+        self.n, self.sr, self.b = chain.block_size, chain.sr, b
+        dev = torch.device(device)
+        dsp = [st["dsp"] for st in states]
+        bc, bb = (b, 2), (b,)
+        pu, sa, mo, wi, co = dsp[0], dsp[1], dsp[3], dsp[4], dsp[5]
+        self.punch_env = torch.stack([_leaf(pu[k], bc, F32, dev, k)
+                                      for k in ("fast_env", "slow_env")])
+        self.sat_tone = _leaf(sa["tone_state"], bc, F32, dev, "tone_state")
+        # texture_kernel_state, stack and the leaves' copies leave the
+        # caller's state untouched by the in-place updates
+        tex = sk.texture_kernel_state(dsp[2], mode)
+        self.tex_dsp = torch.stack([_leaf(tex[k], bc, F32, dev, k)
+                                    for k in sk._TEX_DSP_KEYS])
+        self.tex_mat = torch.stack(sk.tex_mat_leaves(tex, mode))
+        if (tuple(self.tex_mat.shape[1:]) != bc or self.tex_mat.dtype != F32
+                or self.tex_mat.device != dev):
+            raise ValueError(f"texture material state must be float32 "
+                             f"{bc} on {dev}")
+        self.tex_rng = _leaf(tex["rng"], bb, torch.int32, dev, "rng")
+        self.L = _tex.waveguide_size(self.sr)
+        self.wave = mode in _tex.WAVE_MODES
+        self.tex_ring = tex["waveguide"] if self.wave else None
+        if self.wave and (tuple(self.tex_ring.shape) != (self.L, 2, b)
+                          or self.tex_ring.dtype != F32
+                          or self.tex_ring.device != dev):
+            raise ValueError(f"texture ring must be float32 [B, 2, {self.L}] "
+                             f"on {dev}")
+        self.tex_widx = int(tex["wave_idx"].reshape(-1)[0]) if self.wave \
+            else 0
+        self.mot_mono = torch.stack([_leaf(mo[k], bb, F32, dev, k)
+                                     for k in _motion.MONO_KEYS])
+        self.mot_cd = _leaf(mo["onset_cooldown"], bb, torch.int32, dev,
+                            "onset_cooldown")
+        self.mot_rng = _noise.u32_to_i32_bits(
+            _leaf(mo["rng"], bb, torch.int64, dev, "rng"))
+        self.mot_chan = torch.stack([_leaf(mo[k], bc, F32, dev, k)
+                                     for k in _motion.CHAN_KEYS])
+        window = wi["haas_window"]
+        self.D = window.shape[-1]
+        self.haas = _leaf(window, (b, self.D), F32, dev, "haas_window").t() \
+            .clone(memory_format=torch.contiguous_format)      # [D, B]
+        self.haas_pos = 0
+        self.co_mono = torch.stack([_leaf(co[k], bb, F32, dev, k) for k in (
+            "analysis_low", "analysis_high", "target_low", "target_mid",
+            "target_high")])
+        self.co_tail = _leaf(co["tail"], bc, F32, dev, "tail")
+        key = _chain_key(chain)
+        self.consts = _constants_on(key, self.sr, self.n, str(dev))
+        delay = int(_constants_cached(key, self.sr, self.n)[_OFF_WIDTH + 4])
+        if not 0 <= delay < self.D:
+            raise ChainKernelUnsupported(
+                f"Haas delay of {delay} samples outside the window of "
+                f"{self.D}")
+        self.s0, self.s1 = (torch.empty((self.n, 2, b), dtype=F32, device=dev)
+                            for _ in range(2))
+        self.jump = _noise.jump(self.n)
+        self.cooldown = _motion.cooldown_samples(self.sr)
+        self.narrow = int(onepole_narrow(_motion.MAX_CUTOFF_HZ, self.sr))
+
+    def launch(self, x, out, lane_prev, fin, acc, fit):
+        """One block: x, out [N, 2, B] (time-major), lane_prev / fin
+        [14, 5, B], acc [14, 10, B], fit [B] (the block's context fit), all
+        contiguous float32 on the card. Raises on a refused launch."""
+        from juicy_tpu_torch.kernels import _build
+
+        lib = _build.load_library()
+        for t in (x, out, lane_prev, fin, acc, fit):
+            if not (t.is_contiguous() and t.dtype == F32
+                    and t.device == self.s0.device):
+                raise ValueError("chain kernel buffers must be contiguous "
+                                 "float32 on the state's device")
+        ptrs = [t.data_ptr() for t in (
+            x, out, self.s0, self.s1, self.consts)]
+        state = [None if t is None else t.data_ptr() for t in (
+            self.punch_env, self.sat_tone, self.tex_dsp, self.tex_mat,
+            self.tex_rng, self.tex_ring, self.mot_mono, self.mot_cd,
+            self.mot_rng, self.mot_chan, self.haas, self.co_mono,
+            self.co_tail, fit, lane_prev, fin, acc)]
+        device = self.s0.device
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.juicy_chain_block(
+                *ptrs, 0, N_CONSTS, *state, self.b, self.n, self.mode,
+                self.L, self.tex_widx, self.D, self.haas_pos, *self.jump,
+                self.cooldown, self.narrow, stream)
+        if err != 0:
+            raise RuntimeError(f"juicy_chain_block launch failed: CUDA error "
+                               f"{err} ({_build.error_string(lib, err)})")
+        chain_kernel_step.launches += 1
+        if self.wave:
+            self.tex_widx = (self.tex_widx + self.n) % self.L
+        self.haas_pos = (self.haas_pos + self.n) % self.D
+
+    def unpack(self, states0, context_fit) -> List[Dict]:
+        """The kernel-form state back in the ``Chain`` form: one dsp dict
+        per stage (`context_fit` [B] is the last block's)."""
+        tex = dict(states0[2]["dsp"])
+        tex.update(zip(sk._TEX_DSP_KEYS, self.tex_dsp.unbind(0)))
+        tex.update(sk._tex_mat_dict(self.tex_mat.unbind(0), self.mode))
+        tex["rng"] = self.tex_rng
+        if self.wave:
+            tex["waveguide"] = self.tex_ring
+            tex["wave_idx"] = torch.full_like(tex["wave_idx"], self.tex_widx)
+        motion = dict(zip(_motion.MONO_KEYS, self.mot_mono.unbind(0)))
+        motion.update(zip(_motion.CHAN_KEYS, self.mot_chan.unbind(0)))
+        motion["onset_cooldown"] = self.mot_cd
+        motion["rng"] = _noise.i32_bits_to_u32(self.mot_rng)
+        a_low, a_high, t_low, t_mid, t_high = self.co_mono.unbind(0)
+        fast, slow = self.punch_env.unbind(0)
+        return [
+            {"fast_env": fast, "slow_env": slow},
+            {"tone_state": self.sat_tone},
+            sk.texture_ring_state(tex, self.mode),
+            motion,
+            {"haas_window": torch.roll(self.haas, -self.haas_pos, 0).t()
+             .contiguous()},
+            {"target_low": t_low, "target_mid": t_mid, "target_high": t_high,
+             "analysis_low": a_low, "analysis_high": a_high,
+             "tail": self.co_tail, "context_fit": context_fit},
+            dict(states0[6]["dsp"]),
+        ]
+
+
+# ---------------------------------------------------------------------------
+# The two routes over a run of blocks: (out, dsp states, fin, acc, fit)
+# ---------------------------------------------------------------------------
+
+def _lane_buffers(nb: int, b: int, device):
+    return (torch.empty((nb, N_LANES, 5, b), dtype=F32, device=device),
+            torch.empty((nb, N_LANES, 10, b), dtype=F32, device=device),
+            torch.empty((nb, b), dtype=F32, device=device))
+
+
+def _run_cuda(chain, states, clips, return_audio: bool):
+    """The kernel route over every block of `clips` [B, 2, T]: one launch
+    per block. Returns (out [B, 2, T] or None, dsp states, fin
+    [nb, 14, 5, B], acc [nb, 14, 10, B], context fit [nb, B])."""
+    b, _c, t = clips.shape
+    n = chain.block_size
+    nb = t // n
+    kc = KernelChain(chain, states, b, clips.device)
+    xt = clips.permute(2, 1, 0).contiguous()                 # [T, 2, B]
+    out_t = torch.empty_like(xt) if return_audio else None
+    fin, acc, fit = _lane_buffers(nb, b, clips.device)
+    prev = lane_seed([st["analyzer"] for st in states], b, clips.device)
+    for i in range(nb):
+        sl = slice(i * n, (i + 1) * n)
+        # without audio the output goes to a scratch free by then
+        kc.launch(xt[sl], out_t[sl] if return_audio else kc.s0, prev, fin[i],
+                  acc[i], fit[i])
+        prev = fin[i]
+    out = out_t.permute(2, 1, 0).contiguous() if return_audio else None
+    return out, kc.unpack(states, fit[-1]), fin, acc, fit
+
+
+def chain_block_plain(chain, dsps, lane_prev, block):
+    """Plain PyTorch version of one kernel launch, on the ``Chain`` state
+    form: for each stage in chain order its model's ``process`` between a
+    serial pre lane over its input (started from the stage's post lane in
+    `lane_prev` [14, 5, B]) and a serial post lane over its output. Returns
+    (out, dsp states', fin [14, 5, B], acc [14, 10, B])."""
+    x = block
+    new, fins, accs = [], [], []
+    for i, plug in enumerate(chain.plugins):
+        p = plug.full_params(chain.params[i])
+        y, dsp = plug.defn.process(p, dsps[i], x, chain.sr)
+        pre_fin, pre_acc, post_fin, post_acc = sk._lanes_around(
+            x, y, lane_prev[2 * i + 1], chain.sr)
+        fins += [pre_fin, post_fin]
+        accs += [pre_acc, post_acc]
+        new.append(dsp)
+        x = y
+    return x, new, torch.stack(fins), torch.stack(accs)
+
+
+def _run_plain(chain, states, clips, return_audio: bool):
+    """The plain route over every block of `clips`; _run_cuda's contract."""
+    b, _c, t = clips.shape
+    n = chain.block_size
+    nb = t // n
+    fin, acc, fit = _lane_buffers(nb, b, clips.device)
+    prev = lane_seed([st["analyzer"] for st in states], b, clips.device)
+    dsps = [st["dsp"] for st in states]
+    out = torch.empty_like(clips) if return_audio else None
+    for i in range(nb):
+        sl = slice(i * n, (i + 1) * n)
+        y, dsps, fin[i], acc[i] = chain_block_plain(chain, dsps, prev,
+                                                    clips[..., sl])
+        fit[i] = dsps[5]["context_fit"]
+        if return_audio:
+            out[..., sl] = y
+        prev = fin[i]
+    return out, dsps, fin, acc, fit
+
+
+# ---------------------------------------------------------------------------
+# Finalize: the score formulas over the lanes
+# ---------------------------------------------------------------------------
+
+def _finalize(chain, i, pre, post, fit):
+    plug = chain.plugins[i]
+    finalize = plug.defn.finalize_metrics or _default_finalize
+    carry = {"context_fit": fit} if plug.defn.name == "cohere" else None
+    return finalize(plug.full_params(chain.params[i]), pre, post, carry)
+
+
+def finalize_block(chain, an_states, fin, acc, fit):
+    """One block's lanes (fin [14, 5, B], acc [14, 10, B], context fit [B])
+    -> (analyzer states', per-stage metrics): each stage's pre lane from its
+    analyzer state, its post lane from the pre lane's, as Plugin.step."""
+    n, sr = chain.block_size, chain.sr
+    new_an, metrics = [], []
+    for i, st in enumerate(an_states):
+        pre_state, pre = sk.finalize_lane(fin[2 * i], acc[2 * i], st, n, sr)
+        post_state, post = sk.finalize_lane(fin[2 * i + 1], acc[2 * i + 1],
+                                            pre_state, n, sr)
+        new_an.append(post_state)
+        metrics.append(_finalize(chain, i, pre, post, fit))
+    return new_an, metrics
+
+
+def finalize_stream(chain, an0, fin, acc, fit):
+    """A stream's lanes (fin [nb, 14, 5, B], acc [nb, 14, 10, B], context
+    fit [nb, B]) -> (analyzer states', per-stage metrics with leaves
+    [nb, B]). The score formulas run once over all 14 lanes × nb blocks;
+    the repetition/fatigue EMA pair runs serially over 2·nb steps (pre, then
+    post, per block) for the seven analyzers at once: bit-equal to
+    ``finalize_block`` applied block by block."""
+    n, sr = chain.block_size, chain.sr
+    nb, _lanes, _rows, b = fin.shape
+    inv_n = f32(1.0 / n)
+
+    def f(j):
+        return fin[:, :, j]                               # [nb, 14, B]
+
+    def a(j):
+        return acc[:, :, j]
+
+    mets, ema_in = _an._lane_stateless(
+        f(0), f(1), f(2), f(3), f(4), a(0), a(1), a(4), a(5), a(2), a(3),
+        a(6), a(4), a(7), torch.sqrt(a(8) * inv_n), torch.sqrt(a(9) * inv_n),
+        n, sr)
+    rep, fat = (torch.stack([torch.broadcast_to(st[key], (b,))
+                             for st in an0]).to(fin.device)
+                for key in ("repetition_ema", "fatigue_ema"))   # [7, B]
+    density, risk = torch.empty_like(f(0)), torch.empty_like(f(0))
+    for blk in range(nb):
+        for half in (0, 1):                  # the pre lanes, then the post
+            rep, fat, density[blk, half::2], risk[blk, half::2] = \
+                _an._ema_update(rep, fat, {k: v[blk, half::2]
+                                           for k, v in ema_in.items()})
+    new_an, metrics = [], []
+    for i in range(len(an0)):
+        pre, post = ({k: v[:, s] for k, v in mets.items()}
+                     for s in (2 * i, 2 * i + 1))
+        for m, s in ((pre, 2 * i), (post, 2 * i + 1)):
+            m["repetition_density"] = density[:, s]
+            m["fatigue_risk"] = risk[:, s]
+        metrics.append(_finalize(chain, i, pre, post, fit))
+        last = fin[-1, 2 * i + 1]
+        new_an.append({"short_env": last[0], "long_env": last[1],
+                       "low_state": last[2], "high_state": last[3],
+                       "repetition_ema": rep[i], "fatigue_ema": fat[i],
+                       "onset_cooldown": last[4].to(torch.int32)})
+    return new_an, metrics
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def _check_input(chain, clips, what: str):
+    if clips.dtype != F32 or clips.ndim != 3:
+        raise ValueError(f"expected float32 {what} [B, 2, N], got "
+                         f"{clips.dtype} {tuple(clips.shape)}")
+    b, c, t = clips.shape
+    n = chain.block_size
+    if c != 2 or b == 0 or t == 0 or t % n:
+        raise ValueError(f"{what} {tuple(clips.shape)}: the chain kernel "
+                         f"takes [B, 2, T] with T a positive multiple of the "
+                         f"block size {n}")
+
+
+def _route(clips):
+    if clips.device.type == "cuda":
+        return _run_cuda
+    if clips.device.type == "cpu":
+        return _run_plain
+    raise ValueError(f"no chain kernel for device {clips.device}")
+
+
+def _step(run, chain, states, block):
+    _check_chain(chain)
+    _check_input(chain, block, "block")
+    if block.shape[-1] != chain.block_size:
+        raise ValueError(f"block of {block.shape[-1]} samples, expected "
+                         f"{chain.block_size}")
+    states = list(states)
+    out, dsps, fin, acc, fit = run(chain, states, block, True)
+    new_an, metrics = finalize_block(
+        chain, [st["analyzer"] for st in states], fin[0], acc[0], fit[0])
+    return out, [{"analyzer": a, "dsp": d} for a, d in zip(new_an, dsps)], \
+        metrics
+
+
+def _stream(run, chain, states, clips, metrics: str, return_audio: bool):
+    if metrics not in ("blocks", "final", "none"):
+        raise ValueError(f"metrics must be blocks, final or none; got "
+                         f"{metrics!r}")
+    _check_chain(chain)
+    _check_input(chain, clips, "clips")
+    states = list(states)
+    out, dsps, fin, acc, fit = run(chain, states, clips, return_audio)
+    new_an, ms = finalize_stream(chain, [st["analyzer"] for st in states],
+                                 fin, acc, fit)
+    if metrics == "final":
+        ms = [{k: v[-1] for k, v in m.items()} for m in ms]
+    elif metrics == "none":
+        ms = None
+    return out, [{"analyzer": a, "dsp": d} for a, d in zip(new_an, dsps)], ms
+
+
+def chain_kernel_step_plain(chain, states, block):
+    """The chain step as plain PyTorch, on any device."""
+    return _step(_run_plain, chain, states, block)
+
+
+def chain_kernel_step(chain, states, block):
+    """One block [B, 2, N] through the whole chain: one launch of the chain
+    kernel for a CUDA `block`, the plain version for a CPU `block`. Returns
+    (out [B, 2, N], new states, per-stage metrics with leaves [B]), as
+    ``fused_chain_step`` with metrics="blocks"."""
+    return _step(_route(block), chain, states, block)
+
+
+#: chain kernel launches made by chain_kernel_step and chain_kernel_stream
+#: (CUDA tensors only)
+chain_kernel_step.launches = 0
+
+
+def chain_kernel_stream_plain(chain, states, clips, metrics: str = "blocks",
+                              return_audio: bool = True):
+    """The chain stream as plain PyTorch, on any device."""
+    return _stream(_run_plain, chain, states, clips, metrics, return_audio)
+
+
+def chain_kernel_stream(chain, states, clips, metrics: str = "blocks",
+                        return_audio: bool = True):
+    """A [B, 2, T] corpus through the chain block by block: one chain-kernel
+    launch per block for CUDA `clips` (the state packed and the corpus
+    permuted once each way), the plain version for CPU `clips`. Returns
+    (out [B, 2, T] or None without `return_audio`, final states, per-stage
+    metrics with leaves [nb, B], the last block's under "final", or None
+    under "none"), as ``fused_chain_stream``."""
+    return _stream(_route(clips), chain, states, clips, metrics, return_audio)

@@ -1,9 +1,9 @@
 """Corpus-scale batch runner, PyTorch port of juicy_tpu/parallel/corpus.py
-(``run_corpus`` and ``corpus_metrics``).
+(``run_corpus``, ``run_corpus_chain`` and ``corpus_metrics``).
 
-A corpus [B, C, T] streams block by block through one plugin on the card
-(or on the device the caller names); the result is the audio, each clip's
-final-block metrics and their corpus mean/min/max. The JAX runner's mesh has
+A corpus [B, C, T] streams block by block through one plugin, or through a
+``Chain``, on the card (or on the device the caller names); the result is
+the audio, the metrics and their corpus mean/min/max. The JAX runner's mesh has
 no counterpart on one GPU, and the 1024-clip tile alignment does not apply:
 the kernels mask the ragged edge of the batch.
 """
@@ -24,6 +24,17 @@ def corpus_metrics(per_clip_metrics: Dict[str, torch.Tensor]
     """Corpus aggregation of per-clip metric arrays: mean/min/max."""
     return {k: {"mean": torch.mean(v), "min": torch.min(v), "max": torch.max(v)}
             for k, v in per_clip_metrics.items()}
+
+
+def _corpus_on(clips, device):
+    """A [B, C, T] float32 corpus (a tensor or a numpy array) on `device`
+    (None is the card, which must exist)."""
+    if isinstance(clips, np.ndarray):
+        clips = torch.from_numpy(clips)
+    if clips.dtype != torch.float32 or clips.ndim != 3:
+        raise ValueError(f"expected float32 clips [B, C, T], got "
+                         f"{clips.dtype} {tuple(clips.shape)}")
+    return clips.to(resolve_device(device))
 
 
 def _stage_kernel_step(plugin: Plugin):
@@ -70,13 +81,7 @@ def run_corpus(plugin: Plugin, params, clips, use_kernel: str = "auto",
         raise NotImplementedError(
             "run_corpus(automation=) is not ported yet (ROADMAP.md, Queue 1 "
             "item 9: run_corpus(automation=))")
-    device = resolve_device(device)
-    if isinstance(clips, np.ndarray):
-        clips = torch.from_numpy(clips)
-    if clips.dtype != torch.float32 or clips.ndim != 3:
-        raise ValueError(f"expected float32 clips [B, C, T], got "
-                         f"{clips.dtype} {tuple(clips.shape)}")
-    clips = clips.to(device)
+    clips = _corpus_on(clips, device)
     is_texture = plugin.defn.name == "texture"
     mode = _tex.require_static(plugin.full_params(params)) if is_texture \
         else None
@@ -104,3 +109,53 @@ def run_corpus(plugin: Plugin, params, clips, use_kernel: str = "auto",
         out[..., sl], states, last = kstep(p, states, clips[..., sl],
                                            plugin.sr)
     return out, last, corpus_metrics(last)
+
+
+def run_corpus_chain(chain, clips, metrics: str = "final",
+                     use_kernel: str = "auto", automation=None,
+                     materials=None, return_audio: bool = True, device=None):
+    """Full-chain corpus scoring: a [B, C, T] float32 corpus (a tensor or a
+    numpy array) through `chain` on `device` (the card when None, which must
+    then exist; ``"cpu"`` runs the plain PyTorch routes).
+
+    `use_kernel`: "auto" takes ``chain_kernel_stream`` when
+    ``supports_chain_kernel(chain)`` holds (the canonical seven-stage
+    stereo chain with a static texture material), which launches the chain
+    kernel once per block for a CUDA corpus and runs its plain version for a
+    CPU corpus, and ``fused_chain_stream`` otherwise; "never" always takes
+    ``fused_chain_stream``; "always" raises ``ChainKernelUnsupported`` unless
+    the CUDA kernel can run. No route gives way to another on a failure.
+    `metrics` is "final", "blocks" or "none" (see fused_chain_stream);
+    without `return_audio` the audio is not kept and `out` is None.
+    `automation` and per-clip `materials` are not ported yet and raise
+    NotImplementedError.
+
+    Returns (out [B, C, T] or None, per-stage metrics, corpus aggregates of
+    the last stage's metrics, or None under "none")."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.runtime.chain_fused import fused_chain_stream
+
+    if use_kernel not in ("auto", "never", "always"):
+        raise ValueError(f"use_kernel must be auto, never or always; got "
+                         f"{use_kernel!r}")
+    if automation is not None:
+        raise NotImplementedError(
+            "run_corpus_chain(automation=) is not ported yet (ROADMAP.md, "
+            "Queue 1 item 9: automation)")
+    if materials is not None:
+        raise NotImplementedError(
+            "run_corpus_chain(materials=) is not ported yet (ROADMAP.md, "
+            "Queue 1 item 7: per-clip materials)")
+    clips = _corpus_on(clips, device)
+    kernel = use_kernel != "never" and ck.supports_chain_kernel(chain)
+    if use_kernel == "always" and not (kernel and clips.is_cuda):
+        raise ck.ChainKernelUnsupported(
+            f"no chain-kernel path for this chain on {clips.device}: the "
+            f"kernel takes the canonical stereo chain with a static texture "
+            f"material, on CUDA tensors")
+    states = chain.init_state((clips.shape[0],), clips.device)
+    stream = ck.chain_kernel_stream if kernel else fused_chain_stream
+    out, _states, ms = stream(chain, states, clips, metrics=metrics,
+                              return_audio=return_audio)
+    agg = None if ms is None else corpus_metrics(ms[-1])
+    return out, ms, agg

@@ -9,7 +9,11 @@ JAX; on a machine without it, run it as
 The batch is ragged (not a multiple of the kernels' thread blocks) and mono
 and stereo both run, which chip_smoke.py does not cover; texture runs all
 five materials, punch and motion two presets or settings each, and the
-seven-stage Chain runs on the card against the CPU. The inputs
+seven-stage Chain runs on the card against the CPU. The chain kernel runs
+three blocks per texture material against its plain version (bit-equal
+audio and state), the Haas delay at 0 and at its largest over seven
+blocks, its stream against its step, and ``run_corpus_chain``'s routes on
+the card. The inputs
 are made here, from a seed, so that the file needs nothing of the JAX
 test harness.
 """
@@ -242,3 +246,148 @@ def test_chain_on_card_matches_cpu(cuda_device):
         for key, v in stage_c.items():
             d = (stage_g[key].cpu().double() - v.double()).abs()
             assert bool((d <= 1e-5 * v.double().abs().clamp(min=1.0)).all()), key
+
+
+# ---------------------------------------------------------------------------
+# The chain kernel (csrc/chain.cu) against its plain version
+# ---------------------------------------------------------------------------
+
+def _bursts(seed, blocks, device, period=384):
+    """A quiet bed and a decaying 900 Hz burst every `period` samples from
+    a per-clip offset (chip_smoke.py::make_clicks, drawn with numpy), so
+    that onsets fall inside the blocks."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(blocks * N)
+    since = (t[None, :] - rng.integers(0, period, (B, 1))) % period
+    burst = np.exp(-since / 120.0) * 0.6 * np.sin(2 * np.pi * 900.0 * since / SR)
+    bed = 0.008 * np.sin(2 * np.pi * 220.0 * t / SR)
+    x = bed + np.array([1.0, 0.9])[None, :, None] * burst[:, None, :] + \
+        0.002 * rng.standard_normal((B, 2, blocks * N))
+    return torch.from_numpy(np.clip(x, -0.99, 0.99).astype(np.float32)).to(device)
+
+
+def _chain(material, learn=True, haas_ms=None):
+    """bench.py's chain with texture `material` (cohere's learn on, so that
+    its targets move); `haas_ms` replaces width's Haas delay."""
+    from juicy_tpu_torch.runtime.plugin import Chain
+
+    chain = Chain([("punch", "Solar Snap"), ("saturator", "Amber Heat"),
+                   ("texture", {"material": material}), ("motion", None),
+                   ("width", "Prism Arc"),
+                   ("cohere", {"learn": 1.0, "match": 0.9} if learn else None),
+                   ("infer", "Reference Lens")], SR, 2, N)
+    if haas_ms is not None:
+        chain.params[4] = dict(chain.params[4],
+                               haasMs=torch.tensor(float(haas_ms)))
+    return chain
+
+
+def _assert_chain_equal(res_k, res_p):
+    """Audio and every state leaf bit-equal, metrics within 1e-5 of
+    max(1, |value|)."""
+    (out_k, st_k, m_k), (out_p, st_p, m_p) = res_k, res_p
+    assert out_k.is_cuda and torch.equal(out_k, out_p)
+    for sk_, sp in zip(st_k, st_p, strict=True):
+        for group in ("dsp", "analyzer"):
+            assert set(sk_[group]) == set(sp[group])
+            for key, v in sp[group].items():
+                assert sk_[group][key].dtype == v.dtype, (group, key)
+                assert torch.equal(sk_[group][key], v), (group, key)
+    for mk, mp in zip(m_k, m_p, strict=True):
+        for key, v in mp.items():
+            d = (mk[key].double() - v.double()).abs()
+            assert bool((d <= 1e-5 * v.double().abs().clamp(min=1.0)).all()), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("material", [0, 1, 2, 3, 4])
+def test_chain_kernel_matches_plain(material, cuda_device):
+    """Three streamed blocks at B = 300 (ragged): one launch per block and
+    no stage kernel; audio and every state leaf (texture's ring and LCG,
+    motion's rng and cooldown, the Haas window, cohere's targets) bit-equal
+    to the plain version; onsets inside the blocks; the material's own state
+    moved and no other's."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    chain = _chain(material)
+    clips = _bursts(30 + material, 3, cuda_device)
+    st0 = chain.init_state((B,), cuda_device)
+    stage_before = [s.launches for s in (
+        sk.punch_stage_step, sk.saturator_stage_step, sk.texture_stage_step,
+        sk.motion_stage_step)]
+    before = ck.chain_kernel_step.launches
+    res_k = ck.chain_kernel_stream(chain, st0, clips)
+    assert ck.chain_kernel_step.launches == before + 3
+    res_p = ck.chain_kernel_stream_plain(chain, st0, clips)
+    torch.cuda.synchronize()
+    _assert_chain_equal(res_k, res_p)
+    assert stage_before == [s.launches for s in (
+        sk.punch_stage_step, sk.saturator_stage_step, sk.texture_stage_step,
+        sk.motion_stage_step)]
+    st = res_k[1]
+    rolled = (st[3]["dsp"]["rng"] != st0[3]["dsp"]["rng"]).float().mean()
+    assert float(rolled) > 0.9
+    assert not torch.equal(st[5]["dsp"]["target_low"],
+                           st0[5]["dsp"]["target_low"])
+    for key in _TEX_MAT_LEAVES:
+        moved = not torch.equal(st[2]["dsp"][key], st0[2]["dsp"][key])
+        assert moved == (key in _TEX_OWN[material]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("haas_ms", [0.0, 35.0])
+def test_chain_kernel_haas_delays(haas_ms, cuda_device):
+    """The Haas ring at a delay of 0 (the read is the value just written)
+    and at the largest (1680 of 1696 samples), over seven blocks so that
+    the read crosses from the window into the blocks' own output."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    chain = _chain(0, learn=False, haas_ms=haas_ms)
+    clips = _bursts(40, 7, cuda_device)[:64]
+    st0 = chain.init_state((64,), cuda_device)
+    res_k = ck.chain_kernel_stream(chain, st0, clips, metrics="final")
+    res_p = ck.chain_kernel_stream_plain(chain, st0, clips, metrics="final")
+    torch.cuda.synchronize()
+    _assert_chain_equal(res_k, res_p)
+
+
+@pytest.mark.cuda
+def test_chain_kernel_stream_matches_step(cuda_device):
+    """The stream (state packed once, lanes finalized once) equals the step
+    applied block by block (packed and finalized per block), bit for bit."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    chain = _chain(2)
+    clips = _bursts(50, 3, cuda_device)
+    st0 = chain.init_state((B,), cuda_device)
+    out_s, st_s, m_s = ck.chain_kernel_stream(chain, st0, clips)
+    st = st0
+    for k in range(3):
+        out, st, m = ck.chain_kernel_step(chain, st, clips[..., k * N:(k + 1) * N])
+        assert torch.equal(out, out_s[..., k * N:(k + 1) * N])
+        for a, b in zip(m, m_s, strict=True):
+            for key, v in a.items():
+                assert torch.equal(b[key][k], v), (k, key)
+    _assert_chain_equal((out_s, st_s, m_s), (out_s, st, m_s))
+
+
+@pytest.mark.cuda
+def test_run_corpus_chain_always_on_card(cuda_device):
+    """use_kernel="always": one chain-kernel launch per block, the same
+    result as "auto", and within -100 dBFS and 1e-3 (last-block scores) of
+    "never" (the block-major executor on the card)."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.parallel.corpus import run_corpus_chain
+
+    chain = _chain(0, learn=False)
+    clips = _bursts(60, 3, cuda_device)
+    before = ck.chain_kernel_step.launches
+    out_k, ms_k, agg = run_corpus_chain(chain, clips, use_kernel="always")
+    assert ck.chain_kernel_step.launches == before + 3
+    out_a, ms_a, _ = run_corpus_chain(chain, clips)
+    assert torch.equal(out_k, out_a)
+    out_n, ms_n, _ = run_corpus_chain(chain, clips, use_kernel="never")
+    diff = float((out_k.double() - out_n.double()).abs().max())
+    assert diff <= 1e-5, diff
+    assert float((ms_k[-1]["score"] - ms_n[-1]["score"]).abs().max()) <= 1e-3
+    assert 0.0 <= float(agg["score"]["min"]) <= float(agg["score"]["max"]) <= 100.0

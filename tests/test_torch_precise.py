@@ -150,7 +150,8 @@ def test_port_imports_no_jax():
             "assert all(f'juicy_tpu_torch.{m}' in sys.modules for m in ("
             "'models.texture', 'models.punch', 'models.motion', 'models.width', "
             "'models.cohere', 'models.infer', 'ops.noise', 'ops.delays', "
-            "'ops.shapers', 'runtime.plugin')); "
+            "'ops.shapers', 'runtime.plugin', 'kernels.chain_kernel', "
+            "'runtime.chain_fused', 'parallel.corpus')); "
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules); "
             "assert not any(m == 'juicy_tpu' or m.startswith('juicy_tpu.') "
             "for m in sys.modules)")

@@ -1,11 +1,15 @@
 """Where the time of the port's corpus scoring goes, on one NVIDIA GPU.
 
     python3 tools/profile_corpus_torch.py [--plugin texture --material 1]
+    python3 tools/profile_corpus_torch.py --plugin chain
 
 Runs ``juicy_tpu_torch.parallel.corpus.run_corpus`` at chip_smoke.py's full
 width (4096 stereo clips of 94 blocks of 512 samples at 48 kHz, inputs made
 on the card as there: punch and motion get its burst input, the others its
-noise over a sine): one warm-up run, one timed run, then one run under
+noise over a sine), or with ``--plugin chain`` ``run_corpus_chain`` on
+bench.py's seven-stage chain as chip_smoke.py's phase 4e runs it (8192
+clips, the burst input, ``metrics="final"``): one warm-up run, one timed
+run, then one run under
 ``torch.profiler``. Prints the card's name and power limit, the timed and
 profiled walls, the profiled run's device busy time (the sum of its
 kernels' times) by kernel name, its count of ``cudaLaunchKernel`` calls, and
@@ -26,29 +30,40 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-from chip_smoke import (BATCH, BLOCK, CHANNELS, NUM_BLOCKS, PRESET,  # noqa: E402
-                        PUNCH_PRESET, SR, make_batch, make_clicks)
+from chip_smoke import (BATCH, BLOCK, CHAIN, CHAIN_CORPUS_BATCH,  # noqa: E402
+                        CHANNELS, NUM_BLOCKS, PRESET, PUNCH_PRESET, SR,
+                        make_batch, make_clicks)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plugin", choices=("punch", "saturator", "texture",
-                                         "motion"), default="texture")
+                                         "motion", "chain"),
+                    default="texture")
     ap.add_argument("--material", type=int, default=1)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_corpus_torch: needs a CUDA device")
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    from juicy_tpu_torch.parallel.corpus import run_corpus
-    from juicy_tpu_torch.runtime.plugin import Plugin
+    from juicy_tpu_torch.parallel.corpus import run_corpus, run_corpus_chain
+    from juicy_tpu_torch.runtime.plugin import Chain, Plugin
 
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip())
-    plugin = Plugin(args.plugin, SR, CHANNELS, BLOCK)
     device = torch.device("cuda", 0)
+    batch = CHAIN_CORPUS_BATCH if args.plugin == "chain" else BATCH
+    if args.plugin == "chain":
+        chain = Chain(CHAIN, SR, CHANNELS, BLOCK)
+        clips = make_clicks(batch, CHANNELS, NUM_BLOCKS * BLOCK, device,
+                            seed=31)
+
+        def run():
+            run_corpus_chain(chain, clips)
+            torch.cuda.synchronize()
+
+        profile_run(run, "chain", batch)
+        return
+    plugin = Plugin(args.plugin, SR, CHANNELS, BLOCK)
     if args.plugin == "texture":
         plugin = plugin.with_static(material=args.material)
     params = {"saturator": lambda: plugin.preset(PRESET),
@@ -63,6 +78,17 @@ def main(argv=None):
     def run():
         run_corpus(plugin, params, clips)
         torch.cuda.synchronize()
+
+    profile_run(run, args.plugin + (f" material {args.material}"
+                                    if args.plugin == "texture" else ""),
+                batch)
+
+
+def profile_run(run, tag, batch):
+    """A warm-up, a timed run and a profiled run of `run`; prints the
+    walls, the device busy time by kernel and the idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     run()                                   # warm-up: build, caches
     t0 = time.perf_counter()
@@ -81,9 +107,7 @@ def main(argv=None):
                     key=lambda r: -r[1])
     busy = sum(t for _k, t, _c in device) / 1e6      # us -> s
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    tag = args.plugin + (f" material {args.material}"
-                         if args.plugin == "texture" else "")
-    print(f"{tag}: B={BATCH} blocks={NUM_BLOCKS}: wall {wall:.4f} s, "
+    print(f"{tag}: B={batch} blocks={NUM_BLOCKS}: wall {wall:.4f} s, "
           f"profiled wall {prof_wall:.4f} s, device busy {busy:.4f} s, "
           f"cudaLaunchKernel {launches}")
     for key, t, count in device[:8]:
