@@ -2,13 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's corpus paths at full width: full-chain corpus scoring
+Drives the port's paths at full width: full-chain corpus scoring
 (``juicy_tpu_torch.parallel.corpus.run_corpus_chain``, the main path: 8192
 clips of 94 blocks of 512 stereo samples at 48 kHz through the seven-stage
 chain kernel), punch, saturator, texture and motion corpus scoring
-(``run_corpus``, 4096 clips of the same length), and the seven-stage
-``Chain`` and chain executor; inputs made on the card from a seed. Phases,
-each of which raises on failure:
+(``run_corpus``, 4096 clips of the same length), the seven-stage ``Chain``
+and chain executor, serving (``StreamServer``, 4096 live streams on the
+chain kernel), ``analyze_fused`` and ``saturator_step_fused``; inputs made
+on the card from a seed. Phases, each of which raises on failure:
 
 1.  the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2.  build the CUDA kernels from ``juicy_tpu_torch/csrc`` (one nvcc per
@@ -37,15 +38,26 @@ each of which raises on failure:
     window included), the lanes' onset counts and cooldowns equal, every
     stage's metrics within 1e-5 of max(1, |value|); the same four times as
     3b;
+3f. ``analyze_fused`` (csrc/analyzer.cu), two blocks at B = 4096, N = 512
+    on the burst input, one launch each and no other kernel; against its
+    plain version: the lanes (fin, acc) bit-equal, cooldowns equal, metrics
+    within 1e-5; its time per block alone, with the layout, the whole step
+    and the plain version's;
+3g. ``saturator_step_fused`` the same way (one launch of
+    csrc/saturator_stage.cu per block under its own count), bit for bit
+    against its plain version and against ``saturator_stage_step``;
 4.  ``run_corpus`` saturator at full width: exactly one kernel launch per
     block, finite output, scores in [0, 100]; the warm wall time and rate;
     the timed run's first 256 clips against ``use_kernel="never"`` (plain
     ``batched_run`` on the card) at <= -100 dBFS with last-block scores
     within 1e-3;
 4b. ``run_corpus`` texture at full width for gel, metal and wood, checked
-    the same way;
+    the same way, but against ``use_kernel="never"`` on the first 256 clips
+    × 8 blocks (the kernel route run there too, and equal to the timed
+    run's first blocks bit for bit), as 4e does, to keep the script inside
+    its time limit;
 4c. ``run_corpus`` punch ("Solar Snap") and motion (defaults) at full
-    width on the burst input, checked the same way;
+    width on the burst input, checked as 4b;
 4d. the seven-stage ``Chain`` of bench.py (``Chain.batched_run``) on the
     card at B = 256, two blocks, against the same call on the CPU: audio
     <= -100 dBFS, every stage's metrics within 1e-5 of max(1, |value|); and
@@ -59,9 +71,21 @@ each of which raises on failure:
     limit, ``use_kernel="always"`` against ``"never"`` on the first 256 clips
     × 8 blocks (<= -100 dBFS, last-block scores within 1e-3), and the timed
     run's first 256 clips × 8 blocks equal to the "always" run bit for bit
-    (the chain is causal).
+    (the chain is causal);
+5.  serving: ``StreamServer`` on bench.py's chain with 4096 slots, all
+    open, fed the burst input (PCM16 values) by ``submit_many``: 8 ticks,
+    one chain-kernel launch per tick and no other; then per-slot edits on a
+    quarter of the slots (punch, infer's trim, width's Haas delay), 2
+    ticks with one launch each, equal bit for bit to a direct
+    ``chain_kernel_step(params_rows=)`` from a copy of the pool's state, and
+    the first 64 slots equal to the plain rows step (<= -120 dBFS, every
+    state leaf bit-equal); the i16 wire within 1.01/32768 of the f32 wire,
+    the metering rail's scores and async ticks equal to the f32 pool's; the
+    walls of submit_many and of the tick (p50/p95 over 30 ticks, shared and
+    with per-slot rows), sustained async, i16 and metering-rail ticks,
+    against the 10.667 ms block deadline (reported, not gated).
 
-Before each corpus path every launch count is set to 0, and read after it.
+Before each path every launch count is set to 0, and read after it.
 The line before the last is a JSON summary of the kernels, with each one's
 bound (the least time the card could take for the same work, from the bytes
 and operations this run's shapes need); the last line is
@@ -77,6 +101,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 SR = 48000.0
@@ -93,6 +118,10 @@ CHAIN = [("punch", "Solar Snap"), ("saturator", "Amber Heat"),
 CHAIN_BATCH = 256
 CHAIN_CORPUS_BATCH = 8192        # bench.py:798, the full_chain row
 CHAIN_CHECK_BLOCKS = 8
+SERVE_SLOTS = 4096               # bench.py:658, bench_serve_e2e's rows_at
+SERVE_BLOCKS = 12
+SERVE_CHECK_SLOTS = 64
+SERVE_TIMED = 30                 # bench.py:658, steps
 CHAIN_MATERIALS = (0, 2)         # gel (bench.py's chain) and wood (bench.py:796)
 MATERIALS = ("gel", "metal", "wood", "plastic", "flesh")
 CORPUS_MATERIALS = (0, 1, 2)      # bench.py's texture rows
@@ -259,9 +288,29 @@ def chain_step():
     return ck.chain_kernel_step
 
 
+def entry_steps():
+    """The wrappers of the kernels that are entry points of their own:
+    ``analyze_fused`` (csrc/analyzer.cu) and ``saturator_step_fused`` (a
+    launch of csrc/saturator_stage.cu under its own count)."""
+    from juicy_tpu_torch.kernels import analyzer_kernel as ak
+    from juicy_tpu_torch.kernels import saturator_kernel as satk
+
+    return {"analyzer": ak.analyze_fused,
+            "saturator_step_fused": satk.saturator_step_fused}
+
+
+def all_steps():
+    return [*stage_steps().values(), chain_step(), *entry_steps().values()]
+
+
 def reset_launches():
-    for step in (*stage_steps().values(), chain_step()):
+    for step in all_steps():
         step.launches = 0
+
+
+def other_launches(step):
+    """Launches counted since the reset by every wrapper but `step`."""
+    return sum(s.launches for s in all_steps() if s is not step)
 
 
 def check_corpus_outputs(out, clips, last):
@@ -431,11 +480,14 @@ def phase_texture_kernel_vs_plain(device):
             for mode in range(5)}
 
 
-def corpus_run(tag, plugin, params, clips, step):
+def corpus_run(tag, plugin, params, clips, step, check_blocks=None):
     """One corpus path at full width: a warm-up, then the timed run with
     every launch count set to 0 before it and read after it; `step`'s kernel
     must have launched once per block and no other. The timed run's first
-    CHECK_CLIPS clips are then held against ``use_kernel="never"``."""
+    CHECK_CLIPS clips are then held against ``use_kernel="never"``: at full
+    depth, or with `check_blocks` over that many blocks, as 4e does (the
+    kernel route run there too, and equal to the timed run's first blocks
+    bit for bit: the plugins are causal)."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
     from juicy_tpu_torch.parallel.corpus import run_corpus
 
@@ -448,8 +500,7 @@ def corpus_run(tag, plugin, params, clips, step):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = step.launches
-    other = sum(s.launches for s in stage_steps().values()) - launches \
-        + chain_step().launches
+    other = other_launches(step)
     if launches != NUM_BLOCKS or other:
         raise AssertionError(f"{tag}: {launches} kernel launches (and {other} "
                              f"of another kernel) for {NUM_BLOCKS} blocks")
@@ -460,14 +511,22 @@ def corpus_run(tag, plugin, params, clips, step):
           f"{float(agg['score']['mean']):.4f}")
 
     t0 = time.perf_counter()
-    out_n, last_n, _ = run_corpus(plugin, params, clips[:CHECK_CLIPS],
-                                  use_kernel="never")
+    depth = t if check_blocks is None else check_blocks * BLOCK
+    sub = clips[:CHECK_CLIPS, :, :depth]
+    if check_blocks is None:
+        out_k, last_k = out[:CHECK_CLIPS], {"score": last["score"][:CHECK_CLIPS]}
+    else:
+        out_k, last_k, _ = run_corpus(plugin, params, sub)
+        if not torch.equal(out_k, out[:CHECK_CLIPS, :, :depth]):
+            raise AssertionError(f"{tag}: the timed run's first clips differ "
+                                 f"from the check run")
+    out_n, last_n, _ = run_corpus(plugin, params, sub, use_kernel="never")
     torch.cuda.synchronize()
-    db = residual_dbfs(out[:CHECK_CLIPS], out_n)
-    ds = max_diff(last["score"][:CHECK_CLIPS], last_n["score"])
-    print(f"{tag} kernel path vs never on {CHECK_CLIPS} clips: audio "
-          f"{db:.1f} dBFS, last-block score {ds:.3g} "
-          f"({time.perf_counter() - t0:.1f} s)")
+    db = residual_dbfs(out_k, out_n)
+    ds = max_diff(last_k["score"], last_n["score"])
+    print(f"{tag} kernel path vs never on {CHECK_CLIPS} clips x "
+          f"{depth // BLOCK} blocks: audio {db:.1f} dBFS, last-block score "
+          f"{ds:.3g} ({time.perf_counter() - t0:.1f} s)")
     if db > -100.0 or ds > 1e-3:
         raise AssertionError(f"{tag}: kernel corpus path disagrees with "
                              f"batched_run")
@@ -578,7 +637,8 @@ def phase_punch_motion_corpus(device):
         plugin = Plugin(name, SR, CHANNELS, BLOCK)
         params = plugin.preset(preset) if preset else plugin.default_params()
         launches[name] = corpus_run(name, plugin, params, clips,
-                                    stage_steps()[name])
+                                    stage_steps()[name],
+                                    check_blocks=CHAIN_CHECK_BLOCKS)
     return launches
 
 
@@ -758,7 +818,7 @@ def phase_chain_corpus(device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = chain_step().launches
-    other = sum(s.launches for s in stage_steps().values())
+    other = other_launches(chain_step())
     if launches != NUM_BLOCKS or other:
         raise AssertionError(f"chain corpus: {launches} chain-kernel "
                              f"launches (and {other} of another kernel) for "
@@ -823,8 +883,343 @@ def phase_texture_corpus(device):
         plugin = Plugin("texture", SR, CHANNELS, BLOCK).with_static(material=mode)
         launches[MATERIALS[mode]] = corpus_run(
             f"texture {MATERIALS[mode]}", plugin, plugin.default_params(),
-            clips, sk.texture_stage_step)
+            clips, sk.texture_stage_step, check_blocks=CHAIN_CHECK_BLOCKS)
     return launches
+
+
+def analyzer_bound(b, c, n):
+    """analyze_fused per block: audio in, lane in, fin and acc out."""
+    return bound(4 * (b * c * n + 20 * b), b * n * LANE_OPS)
+
+
+def check_all(tag, got, want, tol):
+    """Every leaf of two dicts of tensors within `tol` (0: bit-equal)."""
+    worst = 0.0
+    for key, v in want.items():
+        d = max_diff(got[key], v)
+        worst = max(worst, d)
+        if d > tol:
+            raise AssertionError(f"{tag}: {key} off by {d}")
+    return worst
+
+
+def phase_analyze_fused(device):
+    """3f: analyze_fused, two blocks at B = 4096, N = 512 on the burst
+    input, counted; then against its plain version: fin/acc bit-equal,
+    cooldowns equal, metrics within 1e-5; the times per block."""
+    from juicy_tpu_torch.analyzer import analyzer_init
+    from juicy_tpu_torch.kernels import analyzer_kernel as ak
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+
+    b, n = BATCH, BLOCK
+    x = make_clicks(b, CHANNELS, 2 * n, device, seed=43, period=2 * n)
+    lane_k = sk._lane_consts(SR)
+    step = entry_steps()["analyzer"]
+    st0 = analyzer_init((b,), device)
+    reset_launches()
+    st, runs = st0, []
+    for i in range(2):
+        runs.append((st, ak.analyze_fused(st, x[..., i * n:(i + 1) * n], SR)))
+        st = runs[-1][1][0]
+    torch.cuda.synchronize()
+    launches = step.launches
+    if launches != 2 or other_launches(step):
+        raise AssertionError(f"analyze_fused: {launches} launches (and "
+                             f"{other_launches(step)} of another kernel) "
+                             f"for 2 blocks")
+    worst = 0.0
+    for i, (st_in, (st_k, m_k)) in enumerate(runs):
+        blk = x[..., i * n:(i + 1) * n]
+        lane0 = sk.pack_lane(st_in, b)
+        raw_k = ak._analyzer_lanes_cuda(blk, lane0, lane_k)
+        raw_p = ak._analyzer_lanes_plain(blk, lane0, lane_k)
+        if not all(torch.equal(a, p) for a, p in zip(raw_k, raw_p)):
+            raise AssertionError(f"analyze_fused block {i}: fin/acc differ")
+        st_p, m_p = ak.analyze_fused_plain(st_in, blk, SR)
+        if not torch.equal(st_k["onset_cooldown"], st_p["onset_cooldown"]):
+            raise AssertionError(f"analyze_fused block {i}: cooldowns differ")
+        worst = max(worst, check_all(f"analyze_fused block {i}", m_k, m_p,
+                                     1e-5))
+        print(f"analyze_fused block {i}: fin/acc bit-equal, onsets "
+              f"{int(raw_k[1][1].sum())}, cooldowns running in "
+              f"{float((st_k['onset_cooldown'] > 0).float().mean()):.1%}, "
+              f"metrics within {worst:.3g}")
+    blk = x[..., :n]
+    lane0 = sk.pack_lane(st0, b)
+    xt = blk.permute(2, 1, 0).contiguous()
+    fin = torch.empty((5, b), device=device)
+    acc = torch.empty((10, b), device=device)
+    ms = cuda_ms(lambda: ak.analyzer_launch(xt, lane0, fin, acc, lane_k), 50)
+    layout_ms = cuda_ms(lambda: ak._analyzer_lanes_cuda(blk, lane0, lane_k),
+                        50)
+    step_ms = cuda_ms(lambda: ak.analyze_fused(st0, blk, SR), 20)
+    plain_ms = cuda_ms(lambda: ak._analyzer_lanes_plain(blk, lane0, lane_k), 1)
+    bound_ms, bound_by = analyzer_bound(b, CHANNELS, n)
+    print(f"analyze_fused per block at B={b}, N={n}: kernel {ms:.4f} ms "
+          f"alone, {layout_ms:.4f} ms with layout, whole step {step_ms:.4f} "
+          f"ms, plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms "
+          f"({bound_by})")
+    return {"launches": launches, "max_abs_err": worst, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "layout_ms": layout_ms, "step_ms": step_ms}
+
+
+def phase_saturator_step_fused(device, plugin, params):
+    """3g: saturator_step_fused, two blocks at B = 4096, N = 512, counted
+    (one launch of csrc/saturator_stage.cu each, under its own count); then
+    bit for bit against its plain version and against saturator_stage_step;
+    the times per block."""
+    from juicy_tpu_torch.kernels import saturator_kernel as satk
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+
+    b, n = BATCH, BLOCK
+    x = make_batch(b, CHANNELS, 2 * n, device, seed=53)
+    step = entry_steps()["saturator_step_fused"]
+    st0 = plugin.init_state((b,), device)
+    reset_launches()
+    st, runs = st0, []
+    for i in range(2):
+        runs.append((st, satk.saturator_step_fused(
+            plugin, params, st, x[..., i * n:(i + 1) * n])))
+        st = runs[-1][1][1]
+    torch.cuda.synchronize()
+    launches = step.launches
+    if launches != 2 or other_launches(step):
+        raise AssertionError(f"saturator_step_fused: {launches} launches (and "
+                             f"{other_launches(step)} of another kernel) "
+                             f"for 2 blocks")
+    p = plugin.full_params(params)
+    for i, (st_in, (out_k, st_k, m_k)) in enumerate(runs):
+        blk = x[..., i * n:(i + 1) * n]
+        for tag, (out_o, st_o, m_o) in (
+                ("plain", satk.saturator_step_fused_plain(plugin, params,
+                                                          st_in, blk)),
+                ("stage step", sk.saturator_stage_step(p, st_in, blk, SR))):
+            if not torch.equal(out_k, out_o):
+                raise AssertionError(f"saturator_step_fused block {i}: audio "
+                                     f"differs from the {tag}")
+            check_all(f"saturator_step_fused vs {tag}, block {i}",
+                      {**st_k["analyzer"], **st_k["dsp"], **m_k},
+                      {**st_o["analyzer"], **st_o["dsp"], **m_o}, 0.0)
+        print(f"saturator_step_fused block {i}: audio, state and metrics "
+              f"bit-equal to its plain version and to saturator_stage_step")
+    blk = x[..., :n]
+    lane0 = sk.pack_lane(st0["analyzer"], b)
+    tone0 = st0["dsp"]["tone_state"]
+    scalars = sk._sat_scalars(p, SR)
+    ms = cuda_ms(lambda: satk._lanes_cuda(blk, tone0, lane0, scalars), 50)
+    step_ms = cuda_ms(lambda: satk.saturator_step_fused(plugin, params, st0,
+                                                        blk), 20)
+    plain_ms = cuda_ms(lambda: sk._sat_lanes_plain(blk, tone0, lane0,
+                                                   scalars), 1)
+    bound_ms, bound_by = saturator_bound(b, CHANNELS, n)
+    print(f"saturator_step_fused per block at B={b}, N={n}: kernel "
+          f"{ms:.4f} ms (with layout), whole step {step_ms:.4f} ms, plain "
+          f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms ({bound_by})")
+    return {"launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "step_ms": step_ms}
+
+
+def pool_states(srv, template):
+    """A copy of a CUDA pool's whole state in the Chain form (cohere's
+    context fit, an output of the block, left as in `template`)."""
+    kc = srv._kc.clone()
+    dsps = kc.unpack(template, template[5]["dsp"]["context_fit"])
+    return [{"analyzer": {k: v.clone() for k, v in st["analyzer"].items()},
+             "dsp": d} for st, d in zip(srv._states, dsps)]
+
+
+def serve_ticks(srv, sids, block, ks):
+    """Submit and tick for each block index in `ks`; (results, tick walls
+    in ms, submit walls in ms)."""
+    res, walls, subs = [], [], []
+    for k in ks:
+        t0 = time.perf_counter()
+        srv.submit_many(sids, block(k))
+        t1 = time.perf_counter()
+        res.append(srv.tick_arrays())
+        walls.append((time.perf_counter() - t1) * 1e3)
+        subs.append((t1 - t0) * 1e3)
+    return res, walls, subs
+
+
+def check_launches(tag, want):
+    step = chain_step()
+    if step.launches != want or other_launches(step):
+        raise AssertionError(f"{tag}: {step.launches} chain-kernel launches "
+                             f"(and {other_launches(step)} of another "
+                             f"kernel) for {want} ticks")
+
+
+def pct(walls, q):
+    return float(np.percentile(np.asarray(walls), q))
+
+
+def phase_serve(device):
+    """5: StreamServer on bench.py's chain with SERVE_SLOTS slots, all
+    open, fed the burst input (PCM16 values) by submit_many."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.runtime.plugin import Chain
+    from juicy_tpu_torch.runtime.serve import StreamServer
+
+    s, n = SERVE_SLOTS, BLOCK
+    chain = Chain(CHAIN, SR, CHANNELS, n)
+    x = make_clicks(s, CHANNELS, SERVE_BLOCKS * n, device, seed=47)
+    clips = (torch.round(x * 32768.0) / 32768.0).cpu().numpy()
+    sids = np.arange(s)
+
+    def block(k):
+        k %= SERVE_BLOCKS
+        return clips[..., k * n:(k + 1) * n]
+
+    srv = StreamServer(chain, s)
+    t0 = time.perf_counter()
+    srv.warmup()
+    warm_s = time.perf_counter() - t0
+    if [srv.open_stream() for _ in range(s)] != sids.tolist():
+        raise AssertionError("serve: slots opened out of order")
+
+    reset_launches()
+    base, walls8, _subs = serve_ticks(srv, sids, block, range(8))
+    torch.cuda.synchronize()
+    check_launches("serve", 8)
+    for got_sids, audio, scores, pre in base:
+        if not np.array_equal(got_sids, sids) or audio.shape != (s, 2, n) \
+                or not np.isfinite(audio).all():
+            raise AssertionError("serve: tick output not finite [S, 2, N]")
+        if not ((scores >= 0) & (scores <= 100)).all():
+            raise AssertionError("serve: scores outside [0, 100]")
+    print(f"serve S={s}: warmup {warm_s:.2f} s; 8 ticks, 8 chain-kernel "
+          f"launches and no other; tick walls {[round(w, 2) for w in walls8]} "
+          f"ms")
+
+    # per-slot edits on a quarter of the slots
+    for sid in range(0, s, 4):
+        kind = (sid // 4) % 3
+        if kind == 0:
+            srv.set_params(sid, "punch", punch=0.3)
+        elif kind == 1:
+            srv.set_params(sid, "infer", trim=-4.0)
+        else:
+            srv.set_params(sid, "width", haasMs=30.0)
+    template = chain.init_state((s,), device)
+    snap = pool_states(srv, template)
+    reset_launches()
+    edited, _w, _s = serve_ticks(srv, sids, block, (8, 9))
+    torch.cuda.synchronize()
+    check_launches("serve with per-slot rows", 2)
+    after = pool_states(srv, template)
+    rows = srv._param_rows()
+    out_d, _st, m_d = ck.chain_kernel_step(
+        chain, snap, torch.from_numpy(block(8)).to(device), params_rows=rows)
+    if not (np.array_equal(out_d.cpu().numpy(), edited[0][1]) and
+            np.array_equal(m_d[-1]["score"].cpu().numpy(), edited[0][2])):
+        raise AssertionError("serve: the tick differs from a direct "
+                             "chain_kernel_step(params_rows=)")
+    c = SERVE_CHECK_SLOTS
+    sub_rows = ck.ParamRows(chain, [
+        {k: torch.from_numpy(v[:c]) for k, v in stage.items()}
+        for stage in srv._params], c)
+    st = [{g: {k: v[:c] for k, v in grp.items()} for g, grp in stage.items()}
+          for stage in snap]
+    t0 = time.perf_counter()
+    worst = -math.inf
+    for j, k in enumerate((8, 9)):
+        out_p, st, _m = ck.chain_kernel_step_plain(
+            chain, st, torch.from_numpy(block(k)[:c]).to(device),
+            params_rows=sub_rows)
+        db = residual_dbfs(out_p.cpu(), torch.from_numpy(edited[j][1][:c]))
+        worst = max(worst, db)
+        if db > -120.0:
+            raise AssertionError(f"serve: tick {k} vs the plain rows step "
+                                 f"{db:.1f} dBFS")
+    for i, (sp, sa) in enumerate(zip(st, after)):
+        for g in ("analyzer", "dsp"):
+            for key, v in sp[g].items():
+                if key != "context_fit" and not torch.equal(sa[g][key][:c], v):
+                    raise AssertionError(f"serve: stage {i} {g} {key} differs "
+                                         f"from the plain rows step")
+    print(f"serve with per-slot rows on {s // 4} slots ({len(rows.groups)} "
+          f"settings): 2 ticks, 2 chain-kernel launches and no other; equal "
+          f"to a direct chain_kernel_step(params_rows=) bit for bit; first "
+          f"{c} slots vs the plain rows step: audio {worst:.1f} dBFS, state "
+          f"bit-equal ({time.perf_counter() - t0:.1f} s)")
+
+    # the i16 wire, the metering rail and async ticks against the first 8
+    # ticks of the f32 pool (same input, no edits)
+    i16, meter, asy = (StreamServer(chain, s, **kw) for kw in (
+        {"wire": "i16"}, {"wire": "i16", "audio_out": False}, {}))
+    for other in (i16, meter, asy):
+        other.warmup()
+        for _ in range(s):
+            other.open_stream()
+    got_i16, walls_i16, _s = serve_ticks(i16, sids, block, range(8))
+    got_meter, walls_meter, _s = serve_ticks(meter, sids, block, range(8))
+    pending, got_async = [], []
+    for k in range(8):
+        asy.submit_many(sids, block(k))
+        pending.append(asy.tick_arrays_async())
+        if len(pending) > 2:
+            got_async.append(pending.pop(0).result())
+    got_async += [h.result() for h in pending]
+    lsb = 0.0
+    for k in range(8):
+        want = np.clip(base[k][1], -1.0, 32767.0 / 32768.0)
+        if got_i16[k][1].dtype != np.int16:
+            raise AssertionError("serve: the i16 wire did not return int16")
+        lsb = max(lsb, float(np.abs(got_i16[k][1].astype(np.float32) / 32768.0
+                                    - want).max()) * 32768.0)
+        if not (np.array_equal(got_meter[k][2], base[k][2]) and
+                np.array_equal(got_meter[k][3], base[k][3])
+                and got_meter[k][1] is None):
+            raise AssertionError("serve: the metering rail's scores differ")
+        if not all(np.array_equal(a, b) for a, b in zip(got_async[k],
+                                                        base[k])):
+            raise AssertionError("serve: async ticks differ from sync ticks")
+    if lsb > 1.01:
+        raise AssertionError(f"serve: the i16 wire is {lsb:.3f} LSB from "
+                             f"the f32 wire")
+    print(f"serve: i16 wire within {lsb:.3f} LSB of the f32 wire; metering "
+          f"rail scores equal; async ticks equal to sync ticks (8 each)")
+
+    # times, against the block deadline (reported, not gated)
+    deadline = 1e3 * n / SR
+    _r, walls, subs = serve_ticks(asy, sids, block, range(SERVE_TIMED))
+    _r, walls_rows, _s = serve_ticks(srv, sids, block, range(SERVE_TIMED))
+    _r, walls_i16, _s = serve_ticks(i16, sids, block, range(SERVE_TIMED))
+    _r, walls_meter, _s = serve_ticks(meter, sids, block, range(SERVE_TIMED))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pending = []
+    for k in range(SERVE_TIMED):
+        asy.submit_many(sids, block(k))
+        pending.append(asy.tick_arrays_async())
+        if len(pending) > 2:
+            pending.pop(0).result()
+    for h in pending:
+        h.result()
+    sustained = (time.perf_counter() - t0) * 1e3 / SERVE_TIMED
+    timing = {
+        "deadline_ms": deadline, "slots": s, "warmup_s": warm_s,
+        "submit_p50_ms": pct(subs, 50),
+        "tick_p50_ms": pct(walls, 50), "tick_p95_ms": pct(walls, 95),
+        "rows_tick_p50_ms": pct(walls_rows, 50),
+        "rows_tick_p95_ms": pct(walls_rows, 95),
+        "async_sustained_ms": sustained,
+        "i16_tick_p50_ms": pct(walls_i16, 50),
+        "meter_tick_p50_ms": pct(walls_meter, 50),
+        "launches": 8, "rows_settings": len(rows.groups)}
+    print(f"serve S={s} walls over {SERVE_TIMED} ticks (deadline "
+          f"{deadline:.3f} ms): submit_many p50 {timing['submit_p50_ms']:.3f} "
+          f"ms; tick_arrays p50 {timing['tick_p50_ms']:.3f} / p95 "
+          f"{timing['tick_p95_ms']:.3f} ms shared, "
+          f"{timing['rows_tick_p50_ms']:.3f} / "
+          f"{timing['rows_tick_p95_ms']:.3f} ms with per-slot rows; async "
+          f"sustained {sustained:.3f} ms per tick (submit included); i16 "
+          f"p50 {timing['i16_tick_p50_ms']:.3f} ms; metering rail p50 "
+          f"{timing['meter_tick_p50_ms']:.3f} ms")
+    return timing
 
 
 def main():
@@ -842,11 +1237,14 @@ def main():
     tex_timing = phase_texture_kernel_vs_plain(device)
     pm_timing = phase_punch_motion_kernels(device)
     chain_timing = phase_chain_kernel_vs_plain(device)
+    analyzer = phase_analyze_fused(device)
+    sat_fused = phase_saturator_step_fused(device, plugin, params)
     chain_corpus = phase_chain_corpus(device)
     sat_launches = phase_corpus(device, plugin, params)
     tex_launches = phase_texture_corpus(device)
     pm_launches = phase_punch_motion_corpus(device)
     phase_chain(device)
+    serve = phase_serve(device)
     ref = tex_timing[MATERIALS[REFERENCE_MATERIAL]]
     print(json.dumps({"kernels": [{
         "name": "saturator_stage",
@@ -895,6 +1293,19 @@ def main():
         "timed_batch": CHAIN_CORPUS_BATCH,
         "corpus_wall_s": chain_corpus["wall"],
         "by_material_b4096": chain_timing,
+        "serve": serve,
+    }, {
+        "name": "analyzer",
+        "route": "cuda",
+        "source": "juicy_tpu_torch/csrc/analyzer.cu",
+        "replaces": "juicy_tpu/kernels/analyzer_kernel.py:128",
+        **analyzer,
+    }, {
+        "name": "saturator_step_fused",
+        "route": "cuda",
+        "source": "juicy_tpu_torch/csrc/saturator_stage.cu",
+        "replaces": "juicy_tpu/kernels/saturator_kernel.py:136",
+        **sat_fused,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,12 +9,17 @@ Ported so far (ROADMAP.md lists the rest): the drift-pinned numerics and the
 LCG noise, the analyzer, ``Plugin`` and ``Chain`` with all seven processors
 (texture with a static material), the punch, saturator, texture and motion
 stage kernels and ``run_corpus``, the chain kernel, the block-major chain
-executor and ``run_corpus_chain``.
-Every entry point runs on the CUDA card unless the caller passes another
-``device`` (``runtime/device.py``); ``device="cpu"`` is the plain route.
+executor and ``run_corpus_chain``, serving (``StreamServer``, on the chain
+kernel with per-slot parameter rows), ``analyze_fused`` and
+``saturator_step_fused``: every TPU kernel of the JAX package has its
+counterpart. Every entry point runs on the CUDA card unless the caller
+passes another ``device`` (``runtime/device.py``); ``device="cpu"`` is the
+plain route.
 """
 
 from juicy_tpu_torch.analyzer import analyze, analyzer_init
+from juicy_tpu_torch.kernels.analyzer_kernel import analyze_fused
+from juicy_tpu_torch.kernels.saturator_kernel import saturator_step_fused
 from juicy_tpu_torch.kernels.stage_kernels import (
     motion_stage_step, motion_stage_step_plain, punch_stage_step,
     punch_stage_step_plain, saturator_stage_step, saturator_stage_step_plain,
@@ -23,10 +28,13 @@ from juicy_tpu_torch.models import get_processor
 from juicy_tpu_torch.parallel.corpus import (corpus_metrics, run_corpus,
                                              run_corpus_chain)
 from juicy_tpu_torch.runtime.plugin import Chain, Plugin
+from juicy_tpu_torch.runtime.serve import StreamServer
 
-__all__ = ["Chain", "Plugin", "analyze", "analyzer_init", "corpus_metrics",
+__all__ = ["Chain", "Plugin", "StreamServer", "analyze", "analyze_fused",
+           "analyzer_init", "corpus_metrics",
            "get_processor", "motion_stage_step", "motion_stage_step_plain",
            "punch_stage_step", "punch_stage_step_plain", "run_corpus",
            "run_corpus_chain",
            "saturator_stage_step", "saturator_stage_step_plain",
+           "saturator_step_fused",
            "texture_stage_step", "texture_stage_step_plain"]

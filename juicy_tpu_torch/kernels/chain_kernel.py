@@ -24,16 +24,25 @@ serial pre lane and a serial post lane, in chain order, on the ``Chain``
 state form: the kernel's function in the kernel's lane order. Any other
 device raises, and neither route gives way to the other.
 
-Then the score formulas: ``finalize_block`` per block, ``finalize_stream``
-once over all 14 lanes × nb blocks, with the repetition/fatigue EMA pair run
-serially over 2·nb steps for all seven analyzers at once, so that the
+Then the score formulas: ``finalize_stream`` once over all 14 lanes × nb
+blocks (the step's too, over nb = 1), with the repetition/fatigue EMA pair
+run serially over 2·nb steps for all seven analyzers at once, so that the
 stream's metrics are bit-equal to ``finalize_block`` applied block by block.
 (JAX's stream path reassociates that EMA with an associative scan, about
 1e-6 from the serial order.)
+
+Per-clip parameters (``chain_kernel_step(params_rows=)``, the serving
+pool's per-slot knobs): ``ParamRows`` turns one dict per stage with [B]
+leaves into a [B, N_CONSTS] constant table, one ``chain_constants`` row per
+distinct setting, and the kernel reads clip b's row at ``b * N_CONSTS``. No
+edit is structural: the Haas and waveguide delays are per-thread values,
+checked row by row. The plain version runs once per distinct row, on that
+row's clips, and scatters back; the finalize takes each clip's params.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 from typing import Dict, List, Sequence
 
@@ -57,8 +66,13 @@ CHAIN_ORDER = ("punch", "saturator", "texture", "motion", "width",
 N_LANES = 2 * len(CHAIN_ORDER)
 #: floats per stage in a constant row (csrc/chain.cu's offsets)
 _TEX_CONSTS = 16 + 25
-_OFF_WIDTH = 7 + 13 + 5 + _TEX_CONSTS + 24
+_OFF_TEX = 7 + 13 + 5
+_OFF_WIDTH = _OFF_TEX + _TEX_CONSTS + 24
 N_CONSTS = _OFF_WIDTH + 15
+#: a row's Haas delay in whole samples, and wood's and plastic's waveguide
+#: delay (tex_param_list: 16 common, a1, a2 and gains of the four modes)
+_HAAS_DELAY = _OFF_WIDTH + 4
+_WAVE_DELAY = _OFF_TEX + 16 + 12
 
 
 class ChainKernelUnsupported(ValueError):
@@ -122,7 +136,7 @@ def _chain_key(chain):
                  for full in _full_params(chain))
 
 
-@functools.lru_cache(maxsize=32)
+@functools.lru_cache(maxsize=4096)      # a serving pool's distinct settings
 def _constants_cached(key, sr: float, n: int) -> np.ndarray:
     params = [{k: torch.tensor(f32(v), dtype=F32) for k, v in stage}
               for stage in key]
@@ -155,6 +169,106 @@ def _constants_on(key, sr: float, n: int, device: str) -> torch.Tensor:
     return torch.tensor(_constants_cached(key, sr, n), device=device)
 
 
+def check_rows(rows: np.ndarray, D: int, L: int, wave: bool):
+    """Raise ChainKernelUnsupported unless every constant row [R, N_CONSTS]
+    keeps its delays inside the kernel's rings: 0 <= Haas delay < D (the
+    ring is read `delay` behind its head after the write) and, for wood and
+    plastic, 0 <= waveguide delay <= L - 2 (the model's own clamp)."""
+    haas = rows[:, _HAAS_DELAY]
+    bad = (haas < 0) | (haas >= D)
+    if bad.any():
+        raise ChainKernelUnsupported(
+            f"Haas delay of {int(haas[bad][0])} samples outside the window "
+            f"of {D}")
+    if wave:
+        delay = rows[:, _WAVE_DELAY]
+        bad = (delay < 0) | (delay > L - 2)
+        if bad.any():
+            raise ChainKernelUnsupported(
+                f"waveguide delay of {float(delay[bad][0])} samples outside "
+                f"the ring of {L}")
+
+
+class ParamRows:
+    """Per-clip parameters in the chain kernel's form. `params_rows` holds
+    one dict per stage with the keys of ``chain.params``, each leaf [B] or a
+    scalar (broadcast): the shape of a serving pool's per-slot rows.
+
+    - ``consts`` [U, N_CONSTS]: ``chain_constants`` of each distinct
+      setting, from the same cache, so a row equal to the chain's shared
+      setting is that row bit for bit; ``table(device)`` [B, N_CONSTS] gives
+      each clip its row;
+    - ``groups``: (the per-stage params of one setting, its clip indices),
+      for the plain version;
+    - ``full_on(device)``: each stage's full params with [B] leaves, for
+      the score formulas (infer's sensitivity)."""
+
+    def __init__(self, chain, params_rows, b: int):
+        if len(params_rows) != len(chain.plugins):
+            raise ValueError(f"{len(params_rows)} stages of params rows for "
+                             f"a chain of {len(chain.plugins)}")
+        self.b = b
+        cols, names = [], []
+        for i, (shared, rows) in enumerate(zip(chain.params, params_rows)):
+            if set(rows) != set(shared):
+                raise ValueError(f"stage {i} rows have keys {sorted(rows)}, "
+                                 f"expected {sorted(shared)}")
+            for key in sorted(rows):
+                v = torch.as_tensor(rows[key], dtype=F32).detach().cpu()
+                if v.ndim > 1 or (v.ndim == 1 and v.shape[0] != b):
+                    raise ValueError(f"stage {i} param {key!r} has shape "
+                                     f"{tuple(v.shape)}, expected () or "
+                                     f"({b},)")
+                cols.append(np.broadcast_to(v.numpy(), (b,)))
+                names.append((i, key))
+        mat = np.stack(cols, axis=1)                       # [B, K] float32
+        uniq, inverse = np.unique(mat, axis=0, return_inverse=True)
+        inverse = inverse.reshape(-1)
+        self.groups, consts = [], []
+        for u, row in enumerate(uniq):
+            params = [{} for _ in chain.plugins]
+            for (i, key), v in zip(names, row):
+                params[i][key] = torch.tensor(v, dtype=F32)
+            key = tuple(tuple(sorted((k, float(v))
+                                     for k, v in plug.full_params(p).items()))
+                        for plug, p in zip(chain.plugins, params))
+            consts.append(_constants_cached(key, chain.sr, chain.block_size))
+            self.groups.append((params, torch.from_numpy(
+                np.flatnonzero(inverse == u))))
+        self.consts = np.stack(consts)
+        self._inverse = torch.from_numpy(inverse)
+        cols_t = torch.from_numpy(np.ascontiguousarray(mat))
+        self._full = [plug.full_params(
+            {key: cols_t[:, j] for j, (i, key) in enumerate(names) if i == s})
+            for s, plug in enumerate(chain.plugins)]
+        self._on = {}
+
+    def _cached(self, device):
+        dev = str(torch.device(device))
+        if dev not in self._on:
+            self._on[dev] = (
+                torch.from_numpy(self.consts)[self._inverse].contiguous()
+                .to(dev),
+                [{k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                  for k, v in full.items()} for full in self._full])
+        return self._on[dev]
+
+    def table(self, device) -> torch.Tensor:
+        return self._cached(device)[0]
+
+    def full_on(self, device):
+        return self._cached(device)[1]
+
+
+def _as_rows(chain, params_rows, b: int):
+    if params_rows is None or isinstance(params_rows, ParamRows):
+        if params_rows is not None and params_rows.b != b:
+            raise ValueError(f"params rows for {params_rows.b} clips, "
+                             f"block of {b}")
+        return params_rows
+    return ParamRows(chain, params_rows, b)
+
+
 # ---------------------------------------------------------------------------
 # Kernel form of the chain state and the launch
 # ---------------------------------------------------------------------------
@@ -178,14 +292,24 @@ def lane_seed(an_states, b: int, device) -> torch.Tensor:
     return seed
 
 
+#: KernelChain's state tensors and the axis of each that runs over clips
+_CLIP_AXIS = {"punch_env": 1, "sat_tone": 0, "tex_dsp": 1, "tex_mat": 1,
+              "tex_rng": 0, "tex_ring": 2, "mot_mono": 1, "mot_cd": 0,
+              "mot_rng": 0, "mot_chan": 1, "haas": 1, "co_mono": 1,
+              "co_tail": 0}
+
+
 class KernelChain:
     """The chain's state in kernel form on the card, packed once per call,
     and the launch of ``juicy_chain_block`` (csrc/chain.cu) for one block.
     The state tensors are the wrapper's own copies, updated in place block
     after block; texture's ring write index and the Haas ring's write head
-    are block-uniform host integers that advance by N per launch."""
+    are block-uniform host integers that advance by N per launch. Every
+    clip reads the chain's one constant row, or its own row of a
+    ``ParamRows`` table (``set_rows``)."""
 
-    def __init__(self, chain, states: Sequence[Dict], b: int, device):
+    def __init__(self, chain, states: Sequence[Dict], b: int, device,
+                 rows: ParamRows = None):
         self.mode = mode = _check_chain(chain)
         self.n, self.sr, self.b = chain.block_size, chain.sr, b
         dev = torch.device(device)
@@ -233,18 +357,48 @@ class KernelChain:
             "analysis_low", "analysis_high", "target_low", "target_mid",
             "target_high")])
         self.co_tail = _leaf(co["tail"], bc, F32, dev, "tail")
-        key = _chain_key(chain)
-        self.consts = _constants_on(key, self.sr, self.n, str(dev))
-        delay = int(_constants_cached(key, self.sr, self.n)[_OFF_WIDTH + 4])
-        if not 0 <= delay < self.D:
-            raise ChainKernelUnsupported(
-                f"Haas delay of {delay} samples outside the window of "
-                f"{self.D}")
         self.s0, self.s1 = (torch.empty((self.n, 2, b), dtype=F32, device=dev)
                             for _ in range(2))
         self.jump = _noise.jump(self.n)
         self.cooldown = _motion.cooldown_samples(self.sr)
         self.narrow = int(onepole_narrow(_motion.MAX_CUTOFF_HZ, self.sr))
+        self._key = _chain_key(chain)
+        self.set_rows(rows)
+
+    def set_rows(self, rows: ParamRows = None):
+        """Every clip reads the chain's row (`rows` None: a clip stride of
+        0), or clip b row b of `rows`' table (stride N_CONSTS). Every row's
+        delays are checked (check_rows)."""
+        dev = str(self.s0.device)
+        if rows is None:
+            check_rows(_constants_cached(self._key, self.sr, self.n)[None],
+                       self.D, self.L, self.wave)
+            self.consts = _constants_on(self._key, self.sr, self.n, dev)
+            self.cstride = 0
+        else:
+            if rows.b != self.b:
+                raise ValueError(f"params rows for {rows.b} clips, state of "
+                                 f"{self.b}")
+            check_rows(rows.consts, self.D, self.L, self.wave)
+            self.consts, self.cstride = rows.table(dev), N_CONSTS
+
+    def clone(self) -> "KernelChain":
+        """A copy whose state tensors are the copy's own."""
+        kc = copy.copy(self)
+        for name in (*_CLIP_AXIS, "s0", "s1"):
+            v = getattr(self, name)
+            if v is not None:
+                setattr(kc, name, v.clone())
+        return kc
+
+    def write_clip(self, b: int, fresh: "KernelChain"):
+        """Clip `b`'s column of every state tensor from the one-clip
+        `fresh` (a fresh state packed). A fresh ring is zeros, whatever its
+        head, so the block-uniform ring heads stay where they are."""
+        for name, axis in _CLIP_AXIS.items():
+            dst = getattr(self, name)
+            if dst is not None:
+                dst.select(axis, b).copy_(getattr(fresh, name).select(axis, 0))
 
     def launch(self, x, out, lane_prev, fin, acc, fit):
         """One block: x, out [N, 2, B] (time-major), lane_prev / fin
@@ -269,7 +423,8 @@ class KernelChain:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.juicy_chain_block(
-                *ptrs, 0, N_CONSTS, *state, self.b, self.n, self.mode,
+                *ptrs, self.cstride, N_CONSTS, *state, self.b, self.n,
+                self.mode,
                 self.L, self.tex_widx, self.D, self.haas_pos, *self.jump,
                 self.cooldown, self.narrow, stream)
         if err != 0:
@@ -320,25 +475,34 @@ def _lane_buffers(nb: int, b: int, device):
             torch.empty((nb, b), dtype=F32, device=device))
 
 
-def _run_cuda(chain, states, clips, return_audio: bool):
-    """The kernel route over every block of `clips` [B, 2, T]: one launch
-    per block. Returns (out [B, 2, T] or None, dsp states, fin
-    [nb, 14, 5, B], acc [nb, 14, 10, B], context fit [nb, B])."""
+def _launch_blocks(kc, clips, an_states, return_audio: bool):
+    """Every block of `clips` [B, 2, T] through `kc`, one launch each, the
+    first block's pre lanes seeded from `an_states`. Returns (out [B, 2, T]
+    or None, fin [nb, 14, 5, B], acc [nb, 14, 10, B], context fit
+    [nb, B])."""
     b, _c, t = clips.shape
-    n = chain.block_size
-    nb = t // n
-    kc = KernelChain(chain, states, b, clips.device)
+    nb = t // kc.n
     xt = clips.permute(2, 1, 0).contiguous()                 # [T, 2, B]
     out_t = torch.empty_like(xt) if return_audio else None
     fin, acc, fit = _lane_buffers(nb, b, clips.device)
-    prev = lane_seed([st["analyzer"] for st in states], b, clips.device)
+    prev = lane_seed(an_states, b, clips.device)
     for i in range(nb):
-        sl = slice(i * n, (i + 1) * n)
+        sl = slice(i * kc.n, (i + 1) * kc.n)
         # without audio the output goes to a scratch free by then
         kc.launch(xt[sl], out_t[sl] if return_audio else kc.s0, prev, fin[i],
                   acc[i], fit[i])
         prev = fin[i]
     out = out_t.permute(2, 1, 0).contiguous() if return_audio else None
+    return out, fin, acc, fit
+
+
+def _run_cuda(chain, states, clips, return_audio: bool, rows=None):
+    """The kernel route over every block of `clips` [B, 2, T]: one launch
+    per block. Returns (out [B, 2, T] or None, dsp states, fin
+    [nb, 14, 5, B], acc [nb, 14, 10, B], context fit [nb, B])."""
+    kc = KernelChain(chain, states, clips.shape[0], clips.device, rows)
+    out, fin, acc, fit = _launch_blocks(
+        kc, clips, [st["analyzer"] for st in states], return_audio)
     return out, kc.unpack(states, fit[-1]), fin, acc, fit
 
 
@@ -362,8 +526,10 @@ def chain_block_plain(chain, dsps, lane_prev, block):
     return x, new, torch.stack(fins), torch.stack(accs)
 
 
-def _run_plain(chain, states, clips, return_audio: bool):
+def _run_plain(chain, states, clips, return_audio: bool, rows=None):
     """The plain route over every block of `clips`; _run_cuda's contract."""
+    if rows is not None:
+        return _run_plain_rows(chain, states, clips, return_audio, rows)
     b, _c, t = clips.shape
     n = chain.block_size
     nb = t // n
@@ -382,21 +548,51 @@ def _run_plain(chain, states, clips, return_audio: bool):
     return out, dsps, fin, acc, fit
 
 
+def _run_plain_rows(chain, states, clips, return_audio: bool, rows):
+    """The plain route with per-clip params. Clips are independent, so it
+    runs once per distinct setting, on that setting's clips with its params
+    as the chain's, and scatters the results back: the kernel's function."""
+    b, _c, t = clips.shape
+    fin, acc, fit = _lane_buffers(t // chain.block_size, b, clips.device)
+    out = torch.empty_like(clips) if return_audio else None
+    dsps = None
+    for params, idx in rows.groups:
+        idx = idx.to(clips.device)
+        sub = copy.copy(chain)
+        sub.params = params
+        sub_states = [{g: {k: v[idx] for k, v in st[g].items()}
+                       for g in ("analyzer", "dsp")} for st in states]
+        o, d, fin[..., idx], acc[..., idx], fit[:, idx] = _run_plain(
+            sub, sub_states, clips[idx], return_audio)
+        if return_audio:
+            out[idx] = o
+        if dsps is None:
+            dsps = [{k: v.new_empty((b, *v.shape[1:])) for k, v in dd.items()}
+                    for dd in d]
+        for whole, part in zip(dsps, d):
+            for k, v in part.items():
+                whole[k][idx] = v
+    return out, dsps, fin, acc, fit
+
+
 # ---------------------------------------------------------------------------
 # Finalize: the score formulas over the lanes
 # ---------------------------------------------------------------------------
 
-def _finalize(chain, i, pre, post, fit):
+def _finalize(chain, i, pre, post, fit, params_list=None):
     plug = chain.plugins[i]
     finalize = plug.defn.finalize_metrics or _default_finalize
     carry = {"context_fit": fit} if plug.defn.name == "cohere" else None
-    return finalize(plug.full_params(chain.params[i]), pre, post, carry)
+    params = plug.full_params(chain.params[i]) if params_list is None \
+        else params_list[i]
+    return finalize(params, pre, post, carry)
 
 
 def finalize_block(chain, an_states, fin, acc, fit):
     """One block's lanes (fin [14, 5, B], acc [14, 10, B], context fit [B])
     -> (analyzer states', per-stage metrics): each stage's pre lane from its
-    analyzer state, its post lane from the pre lane's, as Plugin.step."""
+    analyzer state, its post lane from the pre lane's, as Plugin.step. The
+    form ``finalize_stream`` is held to, block by block."""
     n, sr = chain.block_size, chain.sr
     new_an, metrics = [], []
     for i, st in enumerate(an_states):
@@ -408,13 +604,15 @@ def finalize_block(chain, an_states, fin, acc, fit):
     return new_an, metrics
 
 
-def finalize_stream(chain, an0, fin, acc, fit):
+def finalize_stream(chain, an0, fin, acc, fit, params_list=None):
     """A stream's lanes (fin [nb, 14, 5, B], acc [nb, 14, 10, B], context
     fit [nb, B]) -> (analyzer states', per-stage metrics with leaves
     [nb, B]). The score formulas run once over all 14 lanes × nb blocks;
     the repetition/fatigue EMA pair runs serially over 2·nb steps (pre, then
     post, per block) for the seven analyzers at once: bit-equal to
-    ``finalize_block`` applied block by block."""
+    ``finalize_block`` applied block by block. `params_list`: each stage's
+    full params with [B] leaves (per-clip rows), where the chain's are not
+    the clips'."""
     n, sr = chain.block_size, chain.sr
     nb, _lanes, _rows, b = fin.shape
     inv_n = f32(1.0 / n)
@@ -445,7 +643,7 @@ def finalize_stream(chain, an0, fin, acc, fit):
         for m, s in ((pre, 2 * i), (post, 2 * i + 1)):
             m["repetition_density"] = density[:, s]
             m["fatigue_risk"] = risk[:, s]
-        metrics.append(_finalize(chain, i, pre, post, fit))
+        metrics.append(_finalize(chain, i, pre, post, fit, params_list))
         last = fin[-1, 2 * i + 1]
         new_an.append({"short_env": last[0], "long_env": last[1],
                        "low_state": last[2], "high_state": last[3],
@@ -478,18 +676,52 @@ def _route(clips):
     raise ValueError(f"no chain kernel for device {clips.device}")
 
 
-def _step(run, chain, states, block):
+def _check_block(chain, block):
     _check_chain(chain)
     _check_input(chain, block, "block")
     if block.shape[-1] != chain.block_size:
         raise ValueError(f"block of {block.shape[-1]} samples, expected "
                          f"{chain.block_size}")
+
+
+def _finalize_one(chain, an_states, fin, acc, fit, rows, device):
+    """A one-block run's lanes through finalize_stream (nb = 1, bit-equal
+    to finalize_block and far fewer small launches): (analyzer states',
+    per-stage metrics with leaves [B])."""
+    new_an, ms = finalize_stream(
+        chain, an_states, fin, acc, fit,
+        None if rows is None else rows.full_on(device))
+    return new_an, [{k: v[0] for k, v in m.items()} for m in ms]
+
+
+def _step(run, chain, states, block, params_rows):
+    _check_block(chain, block)
+    rows = _as_rows(chain, params_rows, block.shape[0])
     states = list(states)
-    out, dsps, fin, acc, fit = run(chain, states, block, True)
-    new_an, metrics = finalize_block(
-        chain, [st["analyzer"] for st in states], fin[0], acc[0], fit[0])
+    out, dsps, fin, acc, fit = run(chain, states, block, True, rows)
+    new_an, metrics = _finalize_one(chain, [st["analyzer"] for st in states],
+                                    fin, acc, fit, rows, block.device)
     return out, [{"analyzer": a, "dsp": d} for a, d in zip(new_an, dsps)], \
         metrics
+
+
+def kernel_chain_tick(kc: KernelChain, chain, an_states, block,
+                      rows: ParamRows = None, return_audio: bool = True):
+    """One block [B, 2, N] of a CUDA pool whose chain state lives in `kc`
+    from call to call (updated in place; the serving tick): one launch of
+    the chain kernel, each clip reading its row of `rows` when given.
+    Returns (out [B, 2, N] or None, analyzer states', per-stage metrics with
+    leaves [B]): ``chain_kernel_step``'s numbers."""
+    _check_block(chain, block)
+    if block.shape[0] != kc.b or block.device != kc.s0.device:
+        raise ValueError(f"block of {block.shape[0]} clips on "
+                         f"{block.device}, pool of {kc.b} on "
+                         f"{kc.s0.device}")
+    kc.set_rows(rows)
+    out, fin, acc, fit = _launch_blocks(kc, block, an_states, return_audio)
+    new_an, metrics = _finalize_one(chain, an_states, fin, acc, fit, rows,
+                                    block.device)
+    return out, new_an, metrics
 
 
 def _stream(run, chain, states, clips, metrics: str, return_audio: bool):
@@ -509,17 +741,21 @@ def _stream(run, chain, states, clips, metrics: str, return_audio: bool):
     return out, [{"analyzer": a, "dsp": d} for a, d in zip(new_an, dsps)], ms
 
 
-def chain_kernel_step_plain(chain, states, block):
+def chain_kernel_step_plain(chain, states, block, params_rows=None):
     """The chain step as plain PyTorch, on any device."""
-    return _step(_run_plain, chain, states, block)
+    return _step(_run_plain, chain, states, block, params_rows)
 
 
-def chain_kernel_step(chain, states, block):
+def chain_kernel_step(chain, states, block, params_rows=None):
     """One block [B, 2, N] through the whole chain: one launch of the chain
     kernel for a CUDA `block`, the plain version for a CPU `block`. Returns
     (out [B, 2, N], new states, per-stage metrics with leaves [B]), as
-    ``fused_chain_step`` with metrics="blocks"."""
-    return _step(_route(block), chain, states, block)
+    ``fused_chain_step`` with metrics="blocks".
+
+    `params_rows`: per-clip parameters, one dict per stage with the keys of
+    ``chain.params`` and [B] (or scalar) leaves, or a ``ParamRows`` built
+    from them; every stage's every knob may differ from clip to clip."""
+    return _step(_route(block), chain, states, block, params_rows)
 
 
 #: chain kernel launches made by chain_kernel_step and chain_kernel_stream

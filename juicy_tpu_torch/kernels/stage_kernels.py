@@ -186,7 +186,17 @@ def _sat_lanes_plain(x, tone0, lane0, scalars):
 
 def _sat_lanes_cuda(x, tone0, lane0, scalars):
     """Launch ``juicy_saturator_stage`` (csrc/saturator_stage.cu) on the
-    current stream of `x`'s device. Same contract as _sat_lanes_plain."""
+    current stream of `x`'s device, counted as a launch of
+    saturator_stage_step. Same contract as _sat_lanes_plain."""
+    res = sat_launch(x, tone0, lane0, scalars)
+    saturator_stage_step.launches += 1
+    return res
+
+
+def sat_launch(x, tone0, lane0, scalars):
+    """One launch of ``juicy_saturator_stage``, uncounted: its callers
+    count it (saturator_stage_step, and saturator_step_fused in
+    kernels/saturator_kernel.py). Raises on a refused launch."""
     from juicy_tpu_torch.kernels import _build
 
     lib = _build.load_library()
@@ -209,7 +219,6 @@ def _sat_lanes_cuda(x, tone0, lane0, scalars):
     if err != 0:
         raise RuntimeError(f"juicy_saturator_stage launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
-    saturator_stage_step.launches += 1
     return (out_t.permute(2, 1, 0), tone_out.t(), fins[0], accs[0],
             fins[1], accs[1])
 

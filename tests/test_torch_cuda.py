@@ -13,7 +13,11 @@ seven-stage Chain runs on the card against the CPU. The chain kernel runs
 three blocks per texture material against its plain version (bit-equal
 audio and state), the Haas delay at 0 and at its largest over seven
 blocks, its stream against its step, and ``run_corpus_chain``'s routes on
-the card. The inputs
+the card. ``analyze_fused`` and ``saturator_step_fused`` run against their
+plain versions (and the latter against the saturator stage step), the chain
+kernel with per-clip constant rows against its plain version run once per
+distinct row, and the serving pool on the card against the plain step with
+the same rows. The inputs
 are made here, from a seed, so that the file needs nothing of the JAX
 test harness.
 """
@@ -391,3 +395,179 @@ def test_run_corpus_chain_always_on_card(cuda_device):
     assert diff <= 1e-5, diff
     assert float((ms_k[-1]["score"] - ms_n[-1]["score"]).abs().max()) <= 1e-3
     assert 0.0 <= float(agg["score"]["min"]) <= float(agg["score"]["max"]) <= 100.0
+
+
+# ---------------------------------------------------------------------------
+# analyze_fused (csrc/analyzer.cu), saturator_step_fused, per-clip param rows
+# and the serving pool on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2])
+def test_analyze_fused_kernel_matches_plain(channels, cuda_device):
+    """Two blocks at B = 300 (ragged): the lanes (fin, acc) bit-equal, so
+    the state and the metrics are too; one launch per block."""
+    from juicy_tpu_torch.analyzer import analyzer_init
+    from juicy_tpu_torch.kernels import analyzer_kernel as ak
+
+    clips = _clips(70 + channels, channels, 2, cuda_device)
+    lane_k = sk._lane_consts(SR)
+    st_k = st_p = analyzer_init((B,), cuda_device)
+    before = ak.analyze_fused.launches
+    for k in range(2):
+        blk = clips[..., k * N:(k + 1) * N]
+        lane0 = sk.pack_lane(st_k, B)
+        raw_k = ak._analyzer_lanes_cuda(blk, lane0, lane_k)
+        raw_p = ak._analyzer_lanes_plain(blk, lane0, lane_k)
+        assert all(torch.equal(a, b) for a, b in zip(raw_k, raw_p))
+        st_k, m_k = ak.analyze_fused(st_k, blk, SR)
+        st_p, m_p = ak.analyze_fused_plain(st_p, blk, SR)
+        torch.cuda.synchronize()
+        for tree_k, tree_p in ((st_k, st_p), (m_k, m_p)):
+            for key, v in tree_p.items():
+                assert torch.equal(tree_k[key], v), key
+    assert ak.analyze_fused.launches == before + 4
+    assert int(st_k["onset_cooldown"].max()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2])
+def test_saturator_step_fused_matches_plain_and_stage(channels, cuda_device):
+    """saturator_step_fused launches csrc/saturator_stage.cu under its own
+    count: bit-equal to its plain version and to saturator_stage_step."""
+    from juicy_tpu_torch.kernels import saturator_kernel as satk
+
+    plug = Plugin("saturator", SR, channels, N)
+    params = plug.preset("Amber Heat")
+    clips = _clips(80 + channels, channels, 2, cuda_device)
+    st_f = st_p = st_s = plug.init_state((B,), cuda_device)
+    before = (satk.saturator_step_fused.launches,
+              sk.saturator_stage_step.launches)
+    for k in range(2):
+        blk = clips[..., k * N:(k + 1) * N]
+        out_f, st_f, m_f = satk.saturator_step_fused(plug, params, st_f, blk)
+        out_p, st_p, m_p = satk.saturator_step_fused_plain(plug, params,
+                                                           st_p, blk)
+        torch.cuda.synchronize()
+        assert out_f.is_cuda and torch.equal(out_f, out_p)
+        assert torch.equal(st_f["dsp"]["tone_state"], st_p["dsp"]["tone_state"])
+        for key, v in m_p.items():
+            assert torch.equal(m_f[key], v), key
+    assert satk.saturator_step_fused.launches == before[0] + 2
+    out_s, st_s, m_s = sk.saturator_stage_step(plug.full_params(params), st_s,
+                                               clips[..., :N], SR)
+    assert sk.saturator_stage_step.launches == before[1] + 1
+    out_f, _st, m_f = satk.saturator_step_fused(
+        plug, params, plug.init_state((B,), cuda_device), clips[..., :N])
+    assert torch.equal(out_f, out_s)
+    for key, v in m_s.items():
+        assert torch.equal(m_f[key], v), key
+
+
+def _rows(chain, b, seed=0):
+    """Per-clip rows over the chain's params: a quarter of the clips with
+    punch, infer's trim and sensitivity, width's Haas delay or a texture
+    knob edited."""
+    rows = [{k: torch.full((b,), float(v)) for k, v in p.items()}
+            for p in chain.params]
+    for j in range(seed % 4, b, 4):
+        kind = (j // 4) % 4
+        if kind == 0:
+            rows[0]["punch"][j] = 0.3
+        elif kind == 1:
+            rows[6]["trim"][j] = -4.0
+            rows[6]["sensitivity"][j] = 1.5
+        elif kind == 2:
+            rows[4]["haasMs"][j] = 30.0
+        else:
+            rows[2]["weight"][j] = 0.9
+    return rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("material", [0, 2])
+def test_chain_kernel_params_rows_matches_plain(material, cuda_device):
+    """Per-clip constant rows (stride N_CONSTS) against the plain version
+    run once per distinct row, over two blocks; rows all equal to the
+    chain's give the shared launch bit for bit."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    chain = _chain(material)
+    clips = _bursts(90 + material, 2, cuda_device)
+    st0 = chain.init_state((B,), cuda_device)
+    same = [{k: torch.full((B,), float(v)) for k, v in p.items()}
+            for p in chain.params]
+    blk = clips[..., :N]
+    res_shared = ck.chain_kernel_step(chain, st0, blk)
+    res_same = ck.chain_kernel_step(chain, st0, blk, params_rows=same)
+    _assert_chain_equal(res_same, res_shared)
+    rows = ck.ParamRows(chain, _rows(chain, B), B)
+    st_k = st_p = st0
+    before = ck.chain_kernel_step.launches
+    for k in range(2):
+        blk = clips[..., k * N:(k + 1) * N]
+        res_k = ck.chain_kernel_step(chain, st_k, blk, params_rows=rows)
+        res_p = ck.chain_kernel_step_plain(chain, st_p, blk, params_rows=rows)
+        torch.cuda.synchronize()
+        _assert_chain_equal(res_k, res_p)
+        st_k, st_p = res_k[1], res_p[1]
+    assert ck.chain_kernel_step.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_stream_server_on_card(cuda_device):
+    """The pool on the card: one chain-kernel launch per tick and no other
+    kernel; its ticks, with per-slot edits, equal the plain step with the
+    same rows on the card (audio bit-equal, scores exactly); async ticks
+    equal sync ones; the i16 wire within 1.01/32768 of the f32 wire."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.runtime.serve import StreamServer
+
+    chain = _chain(2, learn=False)
+    s = 40
+    # PCM16 values as floats: the i16 wire's input is then the f32 wire's
+    clips = np.round(_bursts(95, 4, cuda_device)[:s].cpu().numpy()
+                     * 32768.0).astype(np.float32) / 32768.0
+    servers = {name: StreamServer(chain, s, **kw) for name, kw in (
+        ("sync", {}), ("async", {}), ("i16", {"wire": "i16"}))}
+    for srv in servers.values():
+        srv.warmup()
+        sids = [srv.open_stream() for _ in range(s - 2)]   # two slots idle
+        rows = _rows(chain, s)
+        for j in sids[::3]:
+            for i, stage_rows in enumerate(rows):
+                srv.set_params(j, i, **{k: float(v[j])
+                                        for k, v in stage_rows.items()})
+    sids = np.arange(s - 2)
+    states = chain.init_state((s,), cuda_device)
+    pending = []
+    for k in range(4):
+        blk = clips[:s - 2, :, k * N:(k + 1) * N]
+        for srv in servers.values():
+            srv.submit_many(sids, blk)
+        stage = [sk_.launches for sk_ in (sk.punch_stage_step,
+                                          sk.saturator_stage_step,
+                                          sk.texture_stage_step,
+                                          sk.motion_stage_step)]
+        before = ck.chain_kernel_step.launches
+        got = servers["sync"].tick_arrays()
+        assert ck.chain_kernel_step.launches == before + 1
+        assert stage == [sk_.launches for sk_ in (
+            sk.punch_stage_step, sk.saturator_stage_step,
+            sk.texture_stage_step, sk.motion_stage_step)]
+        pending.append((got, servers["async"].tick_arrays_async()))
+        x = torch.zeros((s, 2, N), device=cuda_device)
+        x[:s - 2] = torch.from_numpy(blk).to(cuda_device)
+        out_p, states, m_p = ck.chain_kernel_step_plain(
+            chain, states, x, params_rows=servers["sync"]._param_rows())
+        assert np.array_equal(got[1], out_p[:s - 2].cpu().numpy())
+        assert np.array_equal(got[2], m_p[-1]["score"][:s - 2].cpu().numpy())
+        i16 = servers["i16"].tick_arrays()
+        assert i16[1].dtype == np.int16
+        # the wire clamps to the PCM16 range; the chain's output passes 1.0
+        np.testing.assert_allclose(i16[1].astype(np.float32) / 32768.0,
+                                   np.clip(got[1], -1.0, 32767.0 / 32768.0),
+                                   rtol=0, atol=1.01 / 32768.0)
+    for want, handle in pending:
+        for a, b in zip(handle.result(), want):
+            assert np.array_equal(a, b)

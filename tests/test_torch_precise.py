@@ -151,7 +151,9 @@ def test_port_imports_no_jax():
             "'models.texture', 'models.punch', 'models.motion', 'models.width', "
             "'models.cohere', 'models.infer', 'ops.noise', 'ops.delays', "
             "'ops.shapers', 'runtime.plugin', 'kernels.chain_kernel', "
-            "'runtime.chain_fused', 'parallel.corpus')); "
+            "'runtime.chain_fused', 'parallel.corpus', "
+            "'kernels.analyzer_kernel', 'kernels.saturator_kernel', "
+            "'runtime.serve')); "
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules); "
             "assert not any(m == 'juicy_tpu' or m.startswith('juicy_tpu.') "
             "for m in sys.modules)")

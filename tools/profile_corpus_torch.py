@@ -2,14 +2,17 @@
 
     python3 tools/profile_corpus_torch.py [--plugin texture --material 1]
     python3 tools/profile_corpus_torch.py --plugin chain
+    python3 tools/profile_corpus_torch.py --plugin serve
 
 Runs ``juicy_tpu_torch.parallel.corpus.run_corpus`` at chip_smoke.py's full
 width (4096 stereo clips of 94 blocks of 512 samples at 48 kHz, inputs made
 on the card as there: punch and motion get its burst input, the others its
 noise over a sine), or with ``--plugin chain`` ``run_corpus_chain`` on
 bench.py's seven-stage chain as chip_smoke.py's phase 4e runs it (8192
-clips, the burst input, ``metrics="final"``): one warm-up run, one timed
-run, then one run under
+clips, the burst input, ``metrics="final"``), or with ``--plugin serve`` 30
+serving ticks (``submit_many`` and ``tick_arrays``) of a ``StreamServer`` on
+that chain with all of chip_smoke.py's 4096 slots open, fed its PCM16 burst
+input: one warm-up run, one timed run, then one run under
 ``torch.profiler``. Prints the card's name and power limit, the timed and
 profiled walls, the profiled run's device busy time (the sum of its
 kernels' times) by kernel name, its count of ``cudaLaunchKernel`` calls, and
@@ -31,14 +34,15 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from chip_smoke import (BATCH, BLOCK, CHAIN, CHAIN_CORPUS_BATCH,  # noqa: E402
-                        CHANNELS, NUM_BLOCKS, PRESET, PUNCH_PRESET, SR,
+                        CHANNELS, NUM_BLOCKS, PRESET, PUNCH_PRESET,
+                        SERVE_BLOCKS, SERVE_SLOTS, SERVE_TIMED, SR,
                         make_batch, make_clicks)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plugin", choices=("punch", "saturator", "texture",
-                                         "motion", "chain"),
+                                         "motion", "chain", "serve"),
                     default="texture")
     ap.add_argument("--material", type=int, default=1)
     args = ap.parse_args(argv)
@@ -63,6 +67,9 @@ def main(argv=None):
 
         profile_run(run, "chain", batch)
         return
+    if args.plugin == "serve":
+        profile_serve(device)
+        return
     plugin = Plugin(args.plugin, SR, CHANNELS, BLOCK)
     if args.plugin == "texture":
         plugin = plugin.with_static(material=args.material)
@@ -84,7 +91,27 @@ def main(argv=None):
                 batch)
 
 
-def profile_run(run, tag, batch):
+def profile_serve(device):
+    from juicy_tpu_torch.runtime.plugin import Chain
+    from juicy_tpu_torch.runtime.serve import StreamServer
+
+    s, n = SERVE_SLOTS, BLOCK
+    srv = StreamServer(Chain(CHAIN, SR, CHANNELS, n), s)
+    srv.warmup()
+    sids = [srv.open_stream() for _ in range(s)]
+    x = make_clicks(s, CHANNELS, SERVE_BLOCKS * n, device, seed=47)
+    clips = (torch.round(x * 32768.0) / 32768.0).cpu().numpy()
+
+    def run():
+        for k in range(SERVE_TIMED):
+            j = k % SERVE_BLOCKS
+            srv.submit_many(sids, clips[..., j * n:(j + 1) * n])
+            srv.tick_arrays()
+
+    profile_run(run, f"serve ({SERVE_TIMED} ticks)", s, SERVE_TIMED)
+
+
+def profile_run(run, tag, batch, blocks=NUM_BLOCKS):
     """A warm-up, a timed run and a profiled run of `run`; prints the
     walls, the device busy time by kernel and the idle share."""
     from torch.autograd import DeviceType
@@ -107,10 +134,10 @@ def profile_run(run, tag, batch):
                     key=lambda r: -r[1])
     busy = sum(t for _k, t, _c in device) / 1e6      # us -> s
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
-    print(f"{tag}: B={batch} blocks={NUM_BLOCKS}: wall {wall:.4f} s, "
+    print(f"{tag}: B={batch} blocks={blocks}: wall {wall:.4f} s, "
           f"profiled wall {prof_wall:.4f} s, device busy {busy:.4f} s, "
           f"cudaLaunchKernel {launches}")
-    for key, t, count in device[:8]:
+    for key, t, count in device[:10]:
         print(f"  {t / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
     print(f"device idle {100 * (1 - busy / prof_wall):.1f}% of the profiled "
           f"run's wall")
