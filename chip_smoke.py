@@ -52,12 +52,13 @@ on the card from a seed. Phases, each of which raises on failure:
     ``batched_run`` on the card) at <= -100 dBFS with last-block scores
     within 1e-3;
 4b. ``run_corpus`` texture at full width for gel, metal and wood, checked
-    the same way, but against ``use_kernel="never"`` on the first 256 clips
-    × 8 blocks (the kernel route run there too, and equal to the timed
-    run's first blocks bit for bit), as 4e does, to keep the script inside
-    its time limit;
-4c. ``run_corpus`` punch ("Solar Snap") and motion (defaults) at full
-    width on the burst input, checked as 4b;
+    the same way: wood (the ring) at full depth, gel and metal against
+    ``use_kernel="never"`` on the first 256 clips × 8 blocks (the kernel
+    route run there too, and equal to the timed run's first blocks bit for
+    bit), as 4e does: at full depth they would take the script past
+    ~1,100 s of its 1,200;
+4c. ``run_corpus`` punch ("Solar Snap") and motion (defaults, its LCG) at
+    full width on the burst input, checked as 4 at full depth;
 4d. the seven-stage ``Chain`` of bench.py (``Chain.batched_run``) on the
     card at B = 256, two blocks, against the same call on the CPU: audio
     <= -100 dBFS, every stage's metrics within 1e-5 of max(1, |value|); and
@@ -82,8 +83,10 @@ on the card from a seed. Phases, each of which raises on failure:
     state leaf bit-equal); the i16 wire within 1.01/32768 of the f32 wire,
     the metering rail's scores and async ticks equal to the f32 pool's; the
     walls of submit_many and of the tick (p50/p95 over 30 ticks, shared and
-    with per-slot rows), sustained async, i16 and metering-rail ticks,
-    against the 10.667 ms block deadline (reported, not gated).
+    with per-slot rows), sustained async, i16 and metering-rail ticks, and,
+    with every slot a setting of its own, of one ``set_params`` and the
+    tick after it (one launch each), against the 10.667 ms block deadline
+    (reported, not gated).
 
 Before each path every launch count is set to 0, and read after it.
 The line before the last is a JSON summary of the kernels, with each one's
@@ -118,6 +121,9 @@ CHAIN = [("punch", "Solar Snap"), ("saturator", "Amber Heat"),
 CHAIN_BATCH = 256
 CHAIN_CORPUS_BATCH = 8192        # bench.py:798, the full_chain row
 CHAIN_CHECK_BLOCKS = 8
+#: corpus paths whose never-path check runs at full depth (4, 4b, 4c); the
+#: others run CHAIN_CHECK_BLOCKS blocks
+FULL_DEPTH_CHECKS = ("saturator", "texture wood", "punch", "motion")
 SERVE_SLOTS = 4096               # bench.py:658, bench_serve_e2e's rows_at
 SERVE_BLOCKS = 12
 SERVE_CHECK_SLOTS = 64
@@ -480,14 +486,14 @@ def phase_texture_kernel_vs_plain(device):
             for mode in range(5)}
 
 
-def corpus_run(tag, plugin, params, clips, step, check_blocks=None):
+def corpus_run(tag, plugin, params, clips, step):
     """One corpus path at full width: a warm-up, then the timed run with
     every launch count set to 0 before it and read after it; `step`'s kernel
     must have launched once per block and no other. The timed run's first
     CHECK_CLIPS clips are then held against ``use_kernel="never"``: at full
-    depth, or with `check_blocks` over that many blocks, as 4e does (the
-    kernel route run there too, and equal to the timed run's first blocks
-    bit for bit: the plugins are causal)."""
+    depth for the FULL_DEPTH_CHECKS, else over CHAIN_CHECK_BLOCKS blocks, as
+    4e does (the kernel route run there too, and equal to the timed run's
+    first blocks bit for bit: the plugins are causal)."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
     from juicy_tpu_torch.parallel.corpus import run_corpus
 
@@ -511,9 +517,10 @@ def corpus_run(tag, plugin, params, clips, step, check_blocks=None):
           f"{float(agg['score']['mean']):.4f}")
 
     t0 = time.perf_counter()
-    depth = t if check_blocks is None else check_blocks * BLOCK
+    full = tag in FULL_DEPTH_CHECKS
+    depth = t if full else CHAIN_CHECK_BLOCKS * BLOCK
     sub = clips[:CHECK_CLIPS, :, :depth]
-    if check_blocks is None:
+    if full:
         out_k, last_k = out[:CHECK_CLIPS], {"score": last["score"][:CHECK_CLIPS]}
     else:
         out_k, last_k, _ = run_corpus(plugin, params, sub)
@@ -637,8 +644,7 @@ def phase_punch_motion_corpus(device):
         plugin = Plugin(name, SR, CHANNELS, BLOCK)
         params = plugin.preset(preset) if preset else plugin.default_params()
         launches[name] = corpus_run(name, plugin, params, clips,
-                                    stage_steps()[name],
-                                    check_blocks=CHAIN_CHECK_BLOCKS)
+                                    stage_steps()[name])
     return launches
 
 
@@ -883,7 +889,7 @@ def phase_texture_corpus(device):
         plugin = Plugin("texture", SR, CHANNELS, BLOCK).with_static(material=mode)
         launches[MATERIALS[mode]] = corpus_run(
             f"texture {MATERIALS[mode]}", plugin, plugin.default_params(),
-            clips, sk.texture_stage_step, check_blocks=CHAIN_CHECK_BLOCKS)
+            clips, sk.texture_stage_step)
     return launches
 
 
@@ -1083,6 +1089,7 @@ def phase_serve(device):
     reset_launches()
     base, walls8, _subs = serve_ticks(srv, sids, block, range(8))
     torch.cuda.synchronize()
+    launches = chain_step().launches
     check_launches("serve", 8)
     for got_sids, audio, scores, pre in base:
         if not np.array_equal(got_sids, sids) or audio.shape != (s, 2, n) \
@@ -1108,9 +1115,11 @@ def phase_serve(device):
     reset_launches()
     edited, _w, _s = serve_ticks(srv, sids, block, (8, 9))
     torch.cuda.synchronize()
+    edited_launches = chain_step().launches
     check_launches("serve with per-slot rows", 2)
     after = pool_states(srv, template)
     rows = srv._param_rows()
+    settings = len(rows.groups)
     out_d, _st, m_d = ck.chain_kernel_step(
         chain, snap, torch.from_numpy(block(8)).to(device), params_rows=rows)
     if not (np.array_equal(out_d.cpu().numpy(), edited[0][1]) and
@@ -1140,7 +1149,7 @@ def phase_serve(device):
                 if key != "context_fit" and not torch.equal(sa[g][key][:c], v):
                     raise AssertionError(f"serve: stage {i} {g} {key} differs "
                                          f"from the plain rows step")
-    print(f"serve with per-slot rows on {s // 4} slots ({len(rows.groups)} "
+    print(f"serve with per-slot rows on {s // 4} slots ({settings} "
           f"settings): 2 ticks, 2 chain-kernel launches and no other; equal "
           f"to a direct chain_kernel_step(params_rows=) bit for bit; first "
           f"{c} slots vs the plain rows step: audio {worst:.1f} dBFS, state "
@@ -1190,6 +1199,26 @@ def phase_serve(device):
     _r, walls_i16, _s = serve_ticks(i16, sids, block, range(SERVE_TIMED))
     _r, walls_meter, _s = serve_ticks(meter, sids, block, range(SERVE_TIMED))
     torch.cuda.synchronize()
+    # every slot a setting of its own, then ticks that each follow one edit
+    t0 = time.perf_counter()
+    for sid in range(s):
+        srv.set_params(sid, "infer", trim=-6.0 + 6.0 * sid / s)
+    spread_s = time.perf_counter() - t0
+    reset_launches()
+    edits, walls_edit = [], []
+    for k in range(SERVE_TIMED):
+        t0 = time.perf_counter()
+        srv.set_params(k, "punch", punch=0.2 + 0.01 * k)
+        t1 = time.perf_counter()
+        srv.submit_many(sids, block(k))
+        t2 = time.perf_counter()
+        srv.tick_arrays()
+        walls_edit.append((time.perf_counter() - t2) * 1e3)
+        edits.append((t1 - t0) * 1e3)
+    torch.cuda.synchronize()
+    check_launches("serve ticks after an edit", SERVE_TIMED)
+    print(f"serve: {s} distinct settings set in {spread_s:.2f} s; "
+          f"{SERVE_TIMED} ticks each after one edit, one launch each")
     t0 = time.perf_counter()
     pending = []
     for k in range(SERVE_TIMED):
@@ -1209,7 +1238,12 @@ def phase_serve(device):
         "async_sustained_ms": sustained,
         "i16_tick_p50_ms": pct(walls_i16, 50),
         "meter_tick_p50_ms": pct(walls_meter, 50),
-        "launches": 8, "rows_settings": len(rows.groups)}
+        "edit_p50_ms": pct(edits, 50), "edit_p95_ms": pct(edits, 95),
+        "edit_tick_p50_ms": pct(walls_edit, 50),
+        "edit_tick_p95_ms": pct(walls_edit, 95),
+        "edit_settings": s, "spread_s": spread_s,
+        "launches": launches, "edited_launches": edited_launches,
+        "rows_settings": settings}
     print(f"serve S={s} walls over {SERVE_TIMED} ticks (deadline "
           f"{deadline:.3f} ms): submit_many p50 {timing['submit_p50_ms']:.3f} "
           f"ms; tick_arrays p50 {timing['tick_p50_ms']:.3f} / p95 "
@@ -1218,7 +1252,11 @@ def phase_serve(device):
           f"{timing['rows_tick_p95_ms']:.3f} ms with per-slot rows; async "
           f"sustained {sustained:.3f} ms per tick (submit included); i16 "
           f"p50 {timing['i16_tick_p50_ms']:.3f} ms; metering rail p50 "
-          f"{timing['meter_tick_p50_ms']:.3f} ms")
+          f"{timing['meter_tick_p50_ms']:.3f} ms; with {s} distinct "
+          f"settings, one set_params p50 {timing['edit_p50_ms']:.3f} / p95 "
+          f"{timing['edit_p95_ms']:.3f} ms and the tick after it p50 "
+          f"{timing['edit_tick_p50_ms']:.3f} / p95 "
+          f"{timing['edit_tick_p95_ms']:.3f} ms")
     return timing
 
 

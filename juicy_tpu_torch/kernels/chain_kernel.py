@@ -33,8 +33,9 @@ stream's metrics are bit-equal to ``finalize_block`` applied block by block.
 
 Per-clip parameters (``chain_kernel_step(params_rows=)``, the serving
 pool's per-slot knobs): ``ParamRows`` turns one dict per stage with [B]
-leaves into a [B, N_CONSTS] constant table, one ``chain_constants`` row per
-distinct setting, and the kernel reads clip b's row at ``b * N_CONSTS``. No
+leaves into a [B, N_CONSTS] constant table of cached ``chain_constants``
+rows, edited one row at a time, and the kernel reads clip b's row at
+``b * N_CONSTS``. No
 edit is structural: the Haas and waveguide delays are per-thread values,
 checked row by row. The plain version runs once per distinct row, on that
 row's clips, and scatters back; the finalize takes each clip's params.
@@ -194,12 +195,14 @@ class ParamRows:
     one dict per stage with the keys of ``chain.params``, each leaf [B] or a
     scalar (broadcast): the shape of a serving pool's per-slot rows.
 
-    - ``consts`` [U, N_CONSTS]: ``chain_constants`` of each distinct
-      setting, from the same cache, so a row equal to the chain's shared
-      setting is that row bit for bit; ``table(device)`` [B, N_CONSTS] gives
-      each clip its row;
+    - ``consts`` [B, N_CONSTS]: each clip's ``chain_constants`` row, from
+      the same cache, so a row equal to the chain's shared setting is that
+      row bit for bit; ``table(device)`` is it on a device;
+    - ``set_row(j, values)``: one clip's edit, its row worked out alone and
+      written in place into the host table and every device copy (a
+      serving pool's knob turn costs one row, whatever the pool holds);
     - ``groups``: (the per-stage params of one setting, its clip indices),
-      for the plain version;
+      for the plain version, worked out when asked;
     - ``full_on(device)``: each stage's full params with [B] leaves, for
       the score formulas (infer's sensitivity)."""
 
@@ -208,7 +211,8 @@ class ParamRows:
             raise ValueError(f"{len(params_rows)} stages of params rows for "
                              f"a chain of {len(chain.plugins)}")
         self.b = b
-        cols, names = [], []
+        self._chain = chain
+        cols, self._names = [], []
         for i, (shared, rows) in enumerate(zip(chain.params, params_rows)):
             if set(rows) != set(shared):
                 raise ValueError(f"stage {i} rows have keys {sorted(rows)}, "
@@ -220,44 +224,78 @@ class ParamRows:
                                      f"{tuple(v.shape)}, expected () or "
                                      f"({b},)")
                 cols.append(np.broadcast_to(v.numpy(), (b,)))
-                names.append((i, key))
-        mat = np.stack(cols, axis=1)                       # [B, K] float32
-        uniq, inverse = np.unique(mat, axis=0, return_inverse=True)
-        inverse = inverse.reshape(-1)
-        self.groups, consts = [], []
-        for u, row in enumerate(uniq):
-            params = [{} for _ in chain.plugins]
-            for (i, key), v in zip(names, row):
-                params[i][key] = torch.tensor(v, dtype=F32)
-            key = tuple(tuple(sorted((k, float(v))
-                                     for k, v in plug.full_params(p).items()))
-                        for plug, p in zip(chain.plugins, params))
-            consts.append(_constants_cached(key, chain.sr, chain.block_size))
-            self.groups.append((params, torch.from_numpy(
-                np.flatnonzero(inverse == u))))
-        self.consts = np.stack(consts)
-        self._inverse = torch.from_numpy(inverse)
-        cols_t = torch.from_numpy(np.ascontiguousarray(mat))
-        self._full = [plug.full_params(
-            {key: cols_t[:, j] for j, (i, key) in enumerate(names) if i == s})
-            for s, plug in enumerate(chain.plugins)]
+                self._names.append((i, key))
+        self._col = {name: j for j, name in enumerate(self._names)}
+        self._mat = np.stack(cols, axis=1)                 # [B, K] float32
+        uniq, inverse = np.unique(self._mat, axis=0, return_inverse=True)
+        self.consts = np.stack([self._row_consts(row)
+                                for row in uniq])[inverse.reshape(-1)]
+        self._groups = None
         self._on = {}
+
+    def _stage_params(self, row):
+        params = [{} for _ in self._chain.plugins]
+        for (i, key), v in zip(self._names, row):
+            params[i][key] = float(v)
+        return params
+
+    def _row_consts(self, row) -> np.ndarray:
+        key = tuple(tuple(sorted((k, float(v))
+                                 for k, v in plug.full_params(p).items()))
+                    for plug, p in zip(self._chain.plugins,
+                                       self._stage_params(row)))
+        return _constants_cached(key, self._chain.sr, self._chain.block_size)
+
+    def set_row(self, j: int, values) -> None:
+        """Clip `j`'s params: `values` holds one dict per stage of the keys
+        to set (the others keep theirs). Its constant row is worked out
+        alone and written in place, behind the launches already made on the
+        card's stream."""
+        row = self._mat[j].copy()
+        for i, upd in enumerate(values):
+            for key, v in upd.items():
+                if (i, key) not in self._col:
+                    raise KeyError(f"stage {i} has no parameter {key!r}")
+                row[self._col[(i, key)]] = v
+        consts = self._row_consts(row)
+        self._mat[j], self.consts[j] = row, consts
+        for dev, (table, mat, _full) in self._on.items():
+            for dst, src in ((table, consts), (mat, row)):
+                src = torch.tensor(src)
+                if dst.device.type == "cuda":
+                    dst[j].copy_(src.pin_memory(), non_blocking=True)
+                else:
+                    dst[j] = src
+        self._groups = None
+
+    @property
+    def groups(self):
+        if self._groups is None:
+            uniq, inverse = np.unique(self._mat, axis=0, return_inverse=True)
+            inverse = inverse.reshape(-1)
+            order = np.argsort(inverse, kind="stable")
+            split = np.cumsum(np.bincount(inverse, minlength=len(uniq)))[:-1]
+            self._groups = [
+                ([{k: torch.tensor(v, dtype=F32) for k, v in p.items()}
+                  for p in self._stage_params(row)], torch.from_numpy(idx))
+                for row, idx in zip(uniq, np.split(order, split))]
+        return self._groups
 
     def _cached(self, device):
         dev = str(torch.device(device))
         if dev not in self._on:
-            self._on[dev] = (
-                torch.from_numpy(self.consts)[self._inverse].contiguous()
-                .to(dev),
-                [{k: v.to(dev) if isinstance(v, torch.Tensor) else v
-                  for k, v in full.items()} for full in self._full])
+            mat = torch.tensor(self._mat, device=dev)
+            self._on[dev] = (torch.tensor(self.consts, device=dev), mat, [
+                plug.full_params({key: mat[:, j] for j, (i, key)
+                                  in enumerate(self._names) if i == s})
+                for s, plug in enumerate(self._chain.plugins)])
         return self._on[dev]
 
     def table(self, device) -> torch.Tensor:
         return self._cached(device)[0]
 
     def full_on(self, device):
-        return self._cached(device)[1]
+        return self._cached(device)[2]
 
 
 def _as_rows(chain, params_rows, b: int):

@@ -4,24 +4,23 @@ juicy_tpu/kernels/saturator_kernel.py (``saturator_step_fused``).
 ``saturator_step_fused(plugin, params, states, blocks)`` keeps the JAX
 contract: ``blocks`` [B, C, N] float32, state leaves with a leading [B],
 returns ``(out, {"analyzer", "dsp": {"tone_state"}}, metrics)``, the metrics
-through the plugin's ``finalize_metrics``, as ``Plugin.batch_step`` gives
-them.
+as ``Plugin.batch_step`` gives them (the saturator has no
+``finalize_metrics``, so they are the default pre/post scores).
 
 The TPU kernel computes what the saturator stage kernel computes
 (juicy_tpu/kernels/stage_kernels.py ``saturator_stage_step``): the pre lane
 and the drive/skew/``tanh32``/tone/mix body in one sample loop, then the
 post lane over the output. So on the card it is a launch of the same
 hand-written kernel, ``csrc/saturator_stage.cu`` (``stage_kernels.
-sat_launch``), counted here in ``saturator_step_fused.launches``; the plain
-version is the stage kernel's (``_sat_lanes_plain``). Any B >= 1 runs: the
-kernel masks the ragged edge, so JAX's 1024-clip rule is not ported.
+sat_launch``), through the stage step's host code (``_sat_stage``), counted
+here in ``saturator_step_fused.launches``; the plain version is the stage
+kernel's (``_sat_lanes_plain``). Any B >= 1 runs: the kernel masks the
+ragged edge, so JAX's 1024-clip rule is not ported.
 """
 
 from __future__ import annotations
 
 from juicy_tpu_torch.kernels import stage_kernels as sk
-from juicy_tpu_torch.ops.precise import F32
-from juicy_tpu_torch.runtime.plugin import _default_finalize
 
 
 def _lanes_cuda(x, tone0, lane0, scalars):
@@ -34,31 +33,8 @@ def _step(lanes_fn, plugin, params, states, blocks):
     if plugin.defn.name != "saturator":
         raise ValueError(f"saturator_step_fused runs the saturator, not "
                          f"{plugin.defn.name!r}")
-    if blocks.dtype != F32 or blocks.ndim != 3:
-        raise ValueError(f"expected float32 blocks [B, C, N], got "
-                         f"{blocks.dtype} {tuple(blocks.shape)}")
-    b, c, n = blocks.shape
-    if c not in (1, 2) or n == 0 or b == 0:
-        raise ValueError(f"unsupported block shape {tuple(blocks.shape)}")
-    p = plugin.full_params(params)
-    tone0 = states["dsp"]["tone_state"]
-    if tuple(tone0.shape) != (b, c):
-        raise ValueError(f"tone_state is {tuple(tone0.shape)}, expected "
-                         f"{(b, c)}")
-    lane0 = sk.pack_lane(states["analyzer"], b)
-    for t in (tone0, lane0):
-        if t.device != blocks.device or t.dtype != F32:
-            raise ValueError("state must be float32 on the blocks' device")
-    out, tone, pre_fin, pre_acc, post_fin, post_acc = lanes_fn(
-        blocks, tone0, lane0, sk._sat_scalars(p, plugin.sr))
-    pre_state, pre = sk.finalize_lane(pre_fin, pre_acc, states["analyzer"],
-                                      n, plugin.sr)
-    post_state, post = sk.finalize_lane(post_fin, post_acc, pre_state, n,
-                                        plugin.sr)
-    dsp = {"tone_state": tone}
-    finalize = plugin.defn.finalize_metrics or _default_finalize
-    return out, {"analyzer": post_state, "dsp": dsp}, \
-        finalize(p, pre, post, dsp)
+    return sk._sat_stage(lanes_fn, plugin.full_params(params), states,
+                         blocks, plugin.sr)
 
 
 def saturator_step_fused_plain(plugin, params, states, blocks):

@@ -16,8 +16,9 @@ The tick's route:
   to tick (a ``KernelChain`` that lives as long as the server; no pack or
   unpack per tick); on a CPU pool its plain version (``chain_kernel_step``).
   Per-slot edits ride ``ParamRows``: each clip reads its own constant row,
-  so every knob, the Haas delay and the texture knobs of a waveguide
-  material included, stays on the kernel tick;
+  and an edit rewrites that one row in place, so every knob, the Haas
+  delay and the texture knobs of a waveguide material included, stays on
+  the kernel tick;
 - any other chain or metrics mode takes ``fused_chain_step``, with [S]
   rows for the edited knobs.
 
@@ -114,7 +115,7 @@ class StreamServer:
         # slots whose rows differ from the defaults -> the (stage, key)
         # pairs they edited; while empty, ticks use the chain's shared row
         self._custom_slots: Dict[int, set] = {}
-        self._rows = None                       # ParamRows cache
+        self._rows = None               # ParamRows, edited in place once built
 
         # the persistent slot-major assembly buffer: submits write into it
         self._assembly = np.zeros((s, chain.channels, chain.block_size),
@@ -161,9 +162,10 @@ class StreamServer:
         edited = self._custom_slots.pop(sid, None)
         if edited:
             # restore only the rows this tenant touched
+            values = [{} for _ in self._params]
             for i, k in edited:
-                self._params[i][k][sid] = self._default_rows[i][k][sid]
-            self._rows = None
+                values[i][k] = self._default_rows[i][k][sid]
+            self._write_row(sid, values)
 
     @property
     def active_streams(self) -> int:
@@ -190,11 +192,11 @@ class StreamServer:
             if key not in rows:
                 raise KeyError(f"stage {self.chain.plugins[i].defn.name!r} "
                                f"has no parameter {key!r}")
-        for key, value in updates.items():
-            rows[key][sid] = np.float32(value)
+        values = [{} for _ in self._params]
+        values[i] = {key: np.float32(v) for key, v in updates.items()}
+        self._write_row(sid, values)
         self._custom_slots.setdefault(sid, set()).update(
             (i, key) for key in updates)
-        self._rows = None
 
     def set_preset(self, sid: int, stage: Union[int, str],
                    preset: str) -> None:
@@ -208,8 +210,19 @@ class StreamServer:
         i = self._stage_index(stage)
         return {k: float(v[sid]) for k, v in self._params[i].items()}
 
+    def _write_row(self, sid: int, values) -> None:
+        """Slot `sid`'s new values (one dict per stage) into the host rows
+        and, once it is built, the kernel tick's constant table: one row
+        worked out and written in place, whatever the pool holds."""
+        if self._rows is not None:
+            self._rows.set_row(sid, values)
+        for i, upd in enumerate(values):
+            for key, v in upd.items():
+                self._params[i][key][sid] = v
+
     def _param_rows(self):
-        """The kernel tick's per-slot rows (cached until the next edit)."""
+        """The kernel tick's per-slot rows, built at their first use (the
+        warmup's) and kept up to date edit by edit."""
         if self._rows is None:
             self._rows = ck.ParamRows(
                 self.chain, [{k: torch.from_numpy(v) for k, v in rows.items()}

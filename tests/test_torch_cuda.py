@@ -538,6 +538,12 @@ def test_stream_server_on_card(cuda_device):
             for i, stage_rows in enumerate(rows):
                 srv.set_params(j, i, **{k: float(v[j])
                                         for k, v in stage_rows.items()})
+    # the warmup built each pool's table; the edits rewrote its rows in place
+    fresh = ck.ParamRows(chain, [{k: torch.from_numpy(v) for k, v in p.items()}
+                                 for p in servers["sync"]._params], s)
+    for srv in servers.values():
+        assert torch.equal(srv._param_rows().table(srv.device).cpu(),
+                           fresh.table("cpu"))
     sids = np.arange(s - 2)
     states = chain.init_state((s,), cuda_device)
     pending = []

@@ -543,6 +543,59 @@ def test_torch_chain_kernel_rows_checked():
         ck.ParamRows(chain, [dict(r, extra=0.0) for r in rows], 3)
 
 
+def _assert_rows_equal(got, want):
+    np.testing.assert_array_equal(got.consts, want.consts)
+    assert torch.equal(got.table("cpu"), want.table("cpu"))
+    for g, w in zip(got.full_on("cpu"), want.full_on("cpu")):
+        assert set(g) == set(w)
+        for key, v in w.items():
+            assert torch.equal(torch.as_tensor(g[key]), torch.as_tensor(v))
+    assert len(got.groups) == len(want.groups)
+    for (gp, gi), (wp, wi) in zip(got.groups, want.groups):
+        assert torch.equal(gi, wi)
+        assert gp == wp
+
+
+def test_torch_param_rows_edited_in_place():
+    """An edit rewrites one clip's row of the table (host and device copies
+    alike) and nothing else: the edited rows equal rows built afresh from
+    the edited params. The pool keeps its table from the warmup on, edit
+    after edit and close after close, and an unknown key writes nothing."""
+    chain = Chain(CHAIN7, SR, 2, N7)
+    b = 6
+    params = [{k: np.full(b, float(v), np.float32) for k, v in p.items()}
+              for p in chain.params]
+    pr = ck.ParamRows(chain, params, b)
+    pr.table("cpu")                               # a device copy to keep up
+    for j, stage, key, v in ((1, 0, "punch", 0.3), (4, 6, "trim", -4.0),
+                             (1, 4, "haasMs", 30.0), (5, 2, "weight", 0.9),
+                             (4, 6, "trim", 0.0)):
+        values = [{} for _ in params]
+        values[stage][key] = v
+        pr.set_row(j, values)
+        params[stage][key][j] = v
+        _assert_rows_equal(pr, ck.ParamRows(chain, params, b))
+    with pytest.raises(KeyError):
+        pr.set_row(0, [{"nope": 1.0}] + [{} for _ in params[1:]])
+
+    srv = StreamServer(chain, 4, device="cpu")
+    srv.warmup()
+    rows = srv._rows
+    sids = [srv.open_stream() for _ in range(3)]
+    srv.set_params(sids[0], "punch", punch=0.3, clip=0.4)
+    srv.set_params(sids[2], "width", haasMs=30.0)
+    with pytest.raises(KeyError):
+        srv.set_params(sids[1], "infer", trim=-4.0, nope=1.0)
+    assert srv.get_params(sids[1], "infer")["trim"] == \
+        float(chain.params[6]["trim"])
+    srv.close_stream(sids[0])
+    assert srv._rows is rows
+    _assert_rows_equal(rows, ck.ParamRows(
+        chain, [{k: torch.from_numpy(v) for k, v in p.items()}
+                for p in srv._params], 4))
+    assert len(rows.groups) == 2
+
+
 def test_torch_stream_server_not_ported_raise():
     """mesh= (more than one GPU) and a traced texture material name their
     ROADMAP items; the pool runs on the card unless asked for the CPU."""
