@@ -37,7 +37,9 @@ on the card from a seed. Phases, each of which raises on failure:
     bit-equal (the LCG states, cooldowns, the texture ring and the Haas
     window included), the lanes' onset counts and cooldowns equal, every
     stage's metrics within 1e-5 of max(1, |value|); the same four times as
-    3b;
+    3b; the same bars at a ragged B = 100 (its last CTA partly past B); and
+    the kernel's geometry (clips and warps per CTA, registers, shared
+    memory, resident CTAs per SM; no spills);
 3f. ``analyze_fused`` (csrc/analyzer.cu), two blocks at B = 4096, N = 512
     on the burst input, one launch each and no other kernel; against its
     plain version: the lanes (fin, acc) bit-equal, cooldowns equal, metrics
@@ -67,12 +69,13 @@ on the card from a seed. Phases, each of which raises on failure:
 4e. ``run_corpus_chain`` on bench.py's chain at full width (B = 8192, 94
     blocks of 512, ``metrics="final"``): exactly one chain-kernel launch per
     block and no other kernel launch, finite output, scores in [0, 100]; the
-    warm wall time and rate; the kernel's time per block at this width, its
-    bound and the plain version's time; then, at a depth that fits the time
-    limit, ``use_kernel="always"`` against ``"never"`` on the first 256 clips
-    × 8 blocks (<= -100 dBFS, last-block scores within 1e-3), and the timed
-    run's first 256 clips × 8 blocks equal to the "always" run bit for bit
-    (the chain is causal);
+    warm wall time and rate; the timed run equal to the warm-up run bit for
+    bit; the kernel's time per block alone at B = 4096, 8192 and 16384,
+    at this width its bound and the plain version's time; then, at a depth
+    that fits the time limit, ``use_kernel="always"`` against ``"never"``
+    on the first 256 clips × 8 blocks (<= -100 dBFS, last-block scores
+    within 1e-3), and the timed run's first 256 clips × 8 blocks equal to
+    the "always" run bit for bit (the chain is causal);
 5.  serving: ``StreamServer`` on bench.py's chain with 4096 slots, all
     open, fed the burst input (PCM16 values) by ``submit_many``: 8 ticks,
     one chain-kernel launch per tick and no other; then per-slot edits on a
@@ -120,6 +123,10 @@ CHAIN = [("punch", "Solar Snap"), ("saturator", "Amber Heat"),
          ("cohere", None), ("infer", "Reference Lens")]        # bench.py:41-49
 CHAIN_BATCH = 256
 CHAIN_CORPUS_BATCH = 8192        # bench.py:798, the full_chain row
+#: batches at which 4e times the chain kernel alone
+CHAIN_TIMED_BATCHES = (4096, 8192, 16384)
+#: 3e's ragged batch: not a multiple of the chain kernel's 32 clips per CTA
+RAGGED_BATCH = 100
 CHAIN_CHECK_BLOCKS = 8
 #: corpus paths whose never-path check runs at full depth (4, 4b, 4c); the
 #: others run CHAIN_CHECK_BLOCKS blocks
@@ -724,15 +731,49 @@ def chain_kernel_ms(chain, states, blk):
             cuda_ms(with_layout, 20))
 
 
-def chain_kernel_vs_plain(device, mode, x):
+def chain_ptxas(mode):
+    """The build log's ptxas lines for chain_kernel<mode>."""
+    from juicy_tpu_torch.kernels import _build
+
+    lines, on = [], False
+    for line in _build.build_log().splitlines():
+        if "Compiling entry function" in line:
+            on = f"chain_kernelILi{mode}E" in line
+        elif on and ("registers" in line or "spill" in line
+                     or "smem" in line):
+            lines.append(line.strip())
+    return lines
+
+
+def chain_geometry(device, mode):
+    """The chain kernel's geometry for `mode` at N = BLOCK, printed: clips
+    and warps per CTA, registers and shared memory, resident CTAs per SM."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    geo = ck.chain_geometry(mode, BLOCK, device)
+    print(f"chain kernel geometry ({MATERIALS[mode]}, N={BLOCK}): "
+          f"{geo['clips_per_cta']} clips and {geo['warps_per_cta']} warps "
+          f"({geo['threads_per_cta']} threads) per CTA, "
+          f"{geo['registers_per_thread']} registers and "
+          f"{geo['local_bytes_per_thread']} local bytes per thread, "
+          f"{geo['smem_bytes_per_cta']} bytes of shared memory per CTA, "
+          f"{geo['ctas_per_sm']} CTAs resident per SM, chunks of "
+          f"{geo['chunk_samples']} samples; ptxas: {chain_ptxas(mode)}")
+    if geo["local_bytes_per_thread"]:
+        raise AssertionError(f"chain_kernel<{mode}> spills "
+                             f"({geo['local_bytes_per_thread']} local bytes)")
+    return geo
+
+
+def chain_kernel_vs_plain(device, mode, x, timed=True):
     """3e for one material: the kernel route and the plain route over two
-    blocks from the same state; then the times per block."""
+    blocks from the same state; then, if `timed`, the times per block."""
     from juicy_tpu_torch.kernels import chain_kernel as ck
     from juicy_tpu_torch.models import texture as tex
     from juicy_tpu_torch.models import width as wid
     from juicy_tpu_torch.runtime.plugin import Chain
 
-    b, n = BATCH, BLOCK
+    b, n = x.shape[0], BLOCK
     chain = Chain(chain_stages(mode), SR, CHANNELS, n)
     st0 = chain.init_state((b,), device)
     clips = x[..., :2 * n]
@@ -777,6 +818,8 @@ def chain_kernel_vs_plain(device, mode, x):
     if rolled < 0.9:
         raise AssertionError(f"{tag}: motion rolled the LCG in only "
                              f"{rolled:.1%} of clips")
+    if not timed:
+        return {"max_abs_err": max_diff(out_k, out_p)}
 
     blk = x[..., :n]
     ms, layout_ms = chain_kernel_ms(chain, st0, blk)
@@ -798,11 +841,21 @@ def chain_kernel_vs_plain(device, mode, x):
 
 
 def phase_chain_kernel_vs_plain(device):
-    """3e: the chain kernel against its plain version, gel and wood."""
+    """3e: the chain kernel against its plain version, gel and wood, at
+    B = 4096 and on a ragged batch (its last CTA partly past B)."""
     x = make_clicks(BATCH, CHANNELS, 2 * BLOCK, device, seed=37,
                     period=2 * BLOCK)
-    return {MATERIALS[mode]: chain_kernel_vs_plain(device, mode, x)
-            for mode in CHAIN_MATERIALS}
+    ragged = make_clicks(RAGGED_BATCH, CHANNELS, 2 * BLOCK, device, seed=39,
+                         period=2 * BLOCK)
+    res = {}
+    for mode in CHAIN_MATERIALS:
+        geo = chain_geometry(device, mode)
+        res[MATERIALS[mode]] = {**chain_kernel_vs_plain(device, mode, x),
+                                "geometry": geo}
+        err = chain_kernel_vs_plain(device, mode, ragged, timed=False)
+        res[MATERIALS[mode]]["max_abs_err"] = max(
+            res[MATERIALS[mode]]["max_abs_err"], err["max_abs_err"])
+    return res
 
 
 def phase_chain_corpus(device):
@@ -815,7 +868,7 @@ def phase_chain_corpus(device):
     b, n = CHAIN_CORPUS_BATCH, BLOCK
     chain = Chain(CHAIN, SR, CHANNELS, n)
     clips = make_clicks(b, CHANNELS, NUM_BLOCKS * n, device, seed=31)
-    run_corpus_chain(chain, clips)                   # warm-up
+    out0, ms0, _ = run_corpus_chain(chain, clips)    # warm-up
     torch.cuda.synchronize()
 
     reset_launches()
@@ -845,14 +898,30 @@ def phase_chain_corpus(device):
     print(f"run_corpus_chain B={b} T={t}: {wall:.4f} s warm, "
           f"{b * t / SR / wall:.1f} audio-s/s, mean score "
           f"{float(agg['score']['mean']):.4f}")
+    same = torch.equal(out, out0) and all(
+        torch.equal(m[key], m0[key]) for m, m0 in zip(ms, ms0, strict=True)
+        for key in m)
+    print(f"chain corpus: the timed run equals the warm-up run bit for bit: "
+          f"{same}")
+    if not same:
+        raise AssertionError("chain corpus: two runs of the same corpus "
+                             "differ")
+    del out0, ms0
 
+    haas = int(wid.delay_samples(chain.params[4]["haasMs"], SR))
+    by_batch = {}
+    for bt in CHAIN_TIMED_BATCHES:
+        blk_t = make_clicks(bt, CHANNELS, n, device, seed=33)
+        by_batch[bt] = chain_kernel_ms(
+            chain, chain.init_state((bt,), device), blk_t)[0]
+        bms, _ = chain_bound(bt, CHANNELS, n, 0, 0.0, haas)
+        print(f"chain kernel alone at B={bt}, N={n}: {by_batch[bt]:.4f} ms "
+              f"per block (bound {bms:.4f} ms)")
     blk = clips[..., :n]
     st0 = chain.init_state((b,), device)
     kernel_ms, _layout_ms = chain_kernel_ms(chain, st0, blk)
     plain_ms = cuda_ms(lambda: ck.chain_kernel_step_plain(chain, st0, blk), 1)
-    bound_ms, bound_by = chain_bound(
-        b, CHANNELS, n, 0, 0.0,
-        int(wid.delay_samples(chain.params[4]["haasMs"], SR)))
+    bound_ms, bound_by = chain_bound(b, CHANNELS, n, 0, 0.0, haas)
     print(f"chain kernel per block at B={b}, N={n}: {kernel_ms:.4f} ms alone, "
           f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms ({bound_by})")
 
@@ -875,7 +944,8 @@ def phase_chain_corpus(device):
         raise AssertionError("chain: the timed run's first clips differ "
                              "from the check run")
     return {"launches": launches, "wall": wall, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "ms_by_batch": by_batch}
 
 
 def phase_texture_corpus(device):
@@ -1329,6 +1399,7 @@ def main():
         "bound_ms": chain_corpus["bound_ms"],
         "bound_by": chain_corpus["bound_by"], "library_ms": None,
         "timed_batch": CHAIN_CORPUS_BATCH,
+        "ms_by_batch": chain_corpus["ms_by_batch"],
         "corpus_wall_s": chain_corpus["wall"],
         "by_material_b4096": chain_timing,
         "serve": serve,

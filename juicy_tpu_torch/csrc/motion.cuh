@@ -83,15 +83,11 @@ __device__ __forceinline__ void motion_scales(float repetition,
   recovery = 1.0f + k.repeat_ctrl * (1.0f - rep_norm) * 0.25f;
 }
 
-// One pass-2 sample of one channel (cpp:101-142): slew, 4 pi-wrapped phase,
-// sin32 LFO at phase + ch_offset, the modulated one-pole LP, transient
-// boost, tail feedback, budget limiter, mix and output gain. `narrow`
-// selects the cutoff coefficient's narrow exp (the host decides).
-__device__ __forceinline__ float motion_p2(float d, MotionShared& s,
-                                           MotionChan& c, const MotionP1& p1,
-                                           float scale, float recovery,
-                                           float ch_offset, bool narrow,
-                                           const MotionConsts& k) {
+// Pass 2's slew of the variation targets and its 4 pi-wrapped LFO phase
+// (cpp:101-106): the part of the shared state that no channel's audio moves.
+__device__ __forceinline__ void motion_slew(MotionShared& s,
+                                            const MotionP1& p1,
+                                            const MotionConsts& k) {
   constexpr float kTwoPi = 0x1.921fb6p+2f;
   constexpr float kFourPi = 0x1.921fb6p+3f;
   s.vt = k.var_slew * s.vt + k.one_slew * p1.vt_t;
@@ -99,7 +95,20 @@ __device__ __forceinline__ float motion_p2(float d, MotionShared& s,
   s.vtl = k.var_slew * s.vtl + k.one_slew * p1.vtl_t;
   s.phase = s.phase + k.motion_inc;
   s.phase = s.phase > kTwoPi ? s.phase - kFourPi : s.phase;
+}
 
+// One pass-2 sample of one channel up to the budget limiter (cpp:101-131):
+// the slew, sin32 LFO at phase + ch_offset, the modulated one-pole LP,
+// transient boost and tail feedback; returns the wet signal. `narrow`
+// selects the cutoff coefficient's narrow exp (the host decides).
+// s.budget_env is neither read nor written.
+__device__ __forceinline__ float motion_p2_wet(float d, MotionShared& s,
+                                               MotionChan& c,
+                                               const MotionP1& p1,
+                                               float scale, float recovery,
+                                               float ch_offset, bool narrow,
+                                               const MotionConsts& k) {
+  motion_slew(s, p1, k);
   const float lfo = sin32(s.phase + ch_offset);
   const float cutoff = clamp_to(
       900.0f + s.vt * 1100.0f * k.cut_depth + lfo * k.lfo_depth, 120.0f,
@@ -117,14 +126,32 @@ __device__ __forceinline__ float motion_p2(float d, MotionShared& s,
                            transient * k.trans_mv * k.trans_depth;
   c.tail = tone_shift +
            c.tail * clamp_to(k.tail_feedback + s.vtl * 0.06f, 0.0f, 0.93f);
+  return tone_shift * scale * recovery + k.tail_mix * c.tail;
+}
 
-  float wet = tone_shift * scale * recovery + k.tail_mix * c.tail;
-  s.budget_env = k.budget_coeff * s.budget_env + k.one_budget * fabsf(wet);
-  const float limiter_gain = s.budget_env > k.budget_target
-                                 ? k.budget_target / (s.budget_env + 1.0e-5f)
+// The budget limiter, mix and output gain of one pass-2 sample
+// (cpp:132-142): the only part that carries state (`budget_env`) from
+// channel 0 into channel 1.
+__device__ __forceinline__ float motion_p2_limit(float d, float wet,
+                                                 float& budget_env,
+                                                 const MotionConsts& k) {
+  budget_env = k.budget_coeff * budget_env + k.one_budget * fabsf(wet);
+  const float limiter_gain = budget_env > k.budget_target
+                                 ? k.budget_target / (budget_env + 1.0e-5f)
                                  : 1.0f;
   wet = wet * limiter_gain;
   return (d + k.mix * (wet * k.wet_boost - d)) * k.out_gain;
+}
+
+// One pass-2 sample of one channel (cpp:101-142).
+__device__ __forceinline__ float motion_p2(float d, MotionShared& s,
+                                           MotionChan& c, const MotionP1& p1,
+                                           float scale, float recovery,
+                                           float ch_offset, bool narrow,
+                                           const MotionConsts& k) {
+  const float wet =
+      motion_p2_wet(d, s, c, p1, scale, recovery, ch_offset, narrow, k);
+  return motion_p2_limit(d, wet, s.budget_env, k);
 }
 
 }  // namespace juicy

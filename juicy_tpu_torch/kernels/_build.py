@@ -131,6 +131,8 @@ def load_library() -> ctypes.CDLL:
         [ptr] * 5 + [i32] * 2 + [ptr] * 17 + [i32] * 7 + [u32] * 2
         + [i32] * 2 + [ptr])
     lib.juicy_chain_block.restype = i32
+    lib.juicy_chain_geometry.argtypes = [i32, i32, ptr]
+    lib.juicy_chain_geometry.restype = i32
     lib.juicy_analyzer_block.argtypes = [ptr] * 4 + [i32] * 3 + [f32] * 7 + [ptr]
     lib.juicy_analyzer_block.restype = i32
     lib.juicy_cuda_error_string.argtypes = [i32]

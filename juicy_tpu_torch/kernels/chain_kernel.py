@@ -12,7 +12,8 @@ metrics)`` with metrics leaves ``[B]`` (step) or ``[nb, B]`` (stream, or
 the last block only under ``metrics="final"``, or None under ``"none"``).
 
 For CUDA tensors each block is one launch of ``csrc/chain.cu``
-(``KernelChain``): the state goes to kernel form once per call (texture's
+(``KernelChain``; 32 clips per CTA, each clip's chain across twelve warps
+with their own roles, ``chain_geometry``): the state goes to kernel form once per call (texture's
 ring time-major ``[L, C, B]``, the LCG states as int32 bits, the Haas window
 as a ring ``[D, B]``, the analyzer states as the post-lane rows the first
 block's pre lanes start from), stays on the card and is updated in place,
@@ -97,7 +98,7 @@ def _check_chain(chain) -> int:
     if mode is None:
         raise ChainKernelUnsupported(
             "per-clip texture materials are not ported to the chain kernel "
-            "(ROADMAP.md, Queue 1 item 7: materials=)")
+            "(ROADMAP.md, Queue 1 item 3: materials=)")
     return max(0, min(4, mode))
 
 
@@ -395,8 +396,11 @@ class KernelChain:
             "analysis_low", "analysis_high", "target_low", "target_mid",
             "target_high")])
         self.co_tail = _leaf(co["tail"], bc, F32, dev, "tail")
-        self.s0, self.s1 = (torch.empty((self.n, 2, b), dtype=F32, device=dev)
-                            for _ in range(2))
+        # the kernel's scratch: the six streams between the stages, each
+        # [N, 2, B] and kept whole for the block (the post lanes read them
+        # after their pre lanes), three in each buffer
+        self.s0, self.s1 = (torch.empty((3, self.n, 2, b), dtype=F32,
+                                        device=dev) for _ in range(2))
         self.jump = _noise.jump(self.n)
         self.cooldown = _motion.cooldown_samples(self.sr)
         self.narrow = int(onepole_narrow(_motion.MAX_CUTOFF_HZ, self.sr))
@@ -503,6 +507,32 @@ class KernelChain:
         ]
 
 
+#: juicy_chain_geometry's fields, in its order
+GEOMETRY_KEYS = ("clips_per_cta", "warps_per_cta", "threads_per_cta",
+                 "smem_bytes_per_cta", "ctas_per_sm", "registers_per_thread",
+                 "local_bytes_per_thread", "chunk_samples")
+
+
+def chain_geometry(mode: int, n: int, device=None) -> Dict[str, int]:
+    """The chain kernel's launch geometry for texture material `mode` and
+    block size `n` on the card: clips and warps per CTA, its shared memory,
+    the CTAs resident per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    and the registers and local (spill) bytes per thread
+    (``cudaFuncGetAttributes``)."""
+    import ctypes
+
+    from juicy_tpu_torch.kernels import _build
+
+    lib = _build.load_library()
+    g = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    with torch.cuda.device(device):
+        err = lib.juicy_chain_geometry(int(mode), int(n), g)
+    if err != 0:
+        raise RuntimeError(f"juicy_chain_geometry failed: CUDA error {err} "
+                           f"({_build.error_string(lib, err)})")
+    return dict(zip(GEOMETRY_KEYS, g))
+
+
 # ---------------------------------------------------------------------------
 # The two routes over a run of blocks: (out, dsp states, fin, acc, fit)
 # ---------------------------------------------------------------------------
@@ -524,10 +554,11 @@ def _launch_blocks(kc, clips, an_states, return_audio: bool):
     out_t = torch.empty_like(xt) if return_audio else None
     fin, acc, fit = _lane_buffers(nb, b, clips.device)
     prev = lane_seed(an_states, b, clips.device)
+    # without audio every block's output goes to one scratch block
+    sink = None if return_audio else torch.empty_like(xt[:kc.n])
     for i in range(nb):
         sl = slice(i * kc.n, (i + 1) * kc.n)
-        # without audio the output goes to a scratch free by then
-        kc.launch(xt[sl], out_t[sl] if return_audio else kc.s0, prev, fin[i],
+        kc.launch(xt[sl], out_t[sl] if return_audio else sink, prev, fin[i],
                   acc[i], fit[i])
         prev = fin[i]
     out = out_t.permute(2, 1, 0).contiguous() if return_audio else None

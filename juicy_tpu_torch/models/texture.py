@@ -461,7 +461,7 @@ def _check_shared(params):
         if key != "material" and torch.as_tensor(v).ndim:
             raise NotImplementedError(
                 f"texture param {key!r} is batched: per-clip texture params "
-                f"are not ported yet (ROADMAP.md, Queue 1 item 5)")
+                f"are not ported yet (ROADMAP.md, Queue 1 item 3)")
 
 
 def common_consts(params, sr: float, mode: int):
@@ -526,7 +526,7 @@ def require_static(params) -> int:
     if mode is None:
         raise NotImplementedError(
             "texture with a per-clip (traced) material is not ported yet "
-            "(ROADMAP.md, Queue 1 item 5: texture.process_traced); use "
+            "(ROADMAP.md, Queue 1 item 3: texture.process_traced); use "
             "Plugin.with_static(material=m)")
     return max(0, min(4, mode))
 

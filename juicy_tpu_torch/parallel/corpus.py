@@ -80,7 +80,7 @@ def run_corpus(plugin: Plugin, params, clips, use_kernel: str = "auto",
     if automation is not None:
         raise NotImplementedError(
             "run_corpus(automation=) is not ported yet (ROADMAP.md, Queue 1 "
-            "item 9: run_corpus(automation=))")
+            "item 2: automation)")
     clips = _corpus_on(clips, device)
     is_texture = plugin.defn.name == "texture"
     mode = _tex.require_static(plugin.full_params(params)) if is_texture \
@@ -141,11 +141,11 @@ def run_corpus_chain(chain, clips, metrics: str = "final",
     if automation is not None:
         raise NotImplementedError(
             "run_corpus_chain(automation=) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 9: automation)")
+            "Queue 1 item 2: automation)")
     if materials is not None:
         raise NotImplementedError(
             "run_corpus_chain(materials=) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 7: per-clip materials)")
+            "Queue 1 item 3: per-clip materials)")
     clips = _corpus_on(clips, device)
     kernel = use_kernel != "never" and ck.supports_chain_kernel(chain)
     if use_kernel == "always" and not (kernel and clips.is_cuda):

@@ -62,7 +62,7 @@ def fused_chain_stream(chain, states, clips, metrics: str = "blocks",
     if automation is not None:
         raise NotImplementedError(
             "fused_chain_stream(automation=) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 9: automation)")
+            "Queue 1 item 2: automation)")
     if metrics not in _METRICS:
         raise ValueError(f"metrics must be one of {_METRICS}; got "
                          f"{metrics!r}")

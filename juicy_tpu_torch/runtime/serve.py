@@ -65,7 +65,7 @@ class StreamServer:
             if plug.defn.name == "texture" and "material" in params:
                 raise NotImplementedError(
                     "per-stream texture materials (a traced material) are "
-                    "not ported yet (ROADMAP.md, Queue 1 item 5: "
+                    "not ported yet (ROADMAP.md, Queue 1 item 3: "
                     "texture.process_traced); bind a static material")
         if metrics not in ("blocks", "final", "none"):
             raise ValueError(f"metrics must be blocks, final or none; got "

@@ -301,7 +301,7 @@ def test_torch_supports_chain_kernel():
     """The cases of tests/test_chain_kernel.py that apply: the canonical
     chain (any static material) yes; one stage, a reordered chain, mono, a
     batched param or per-clip materials no (the port has no packed-material
-    lane: per-clip materials are ROADMAP.md Queue 1 item 7)."""
+    lane: per-clip materials are ROADMAP.md Queue 1 item 3)."""
     assert ck.supports_chain_kernel(TChain(_stages(), SR, 2, N))
     assert ck.supports_chain_kernel(TChain(_stages(2), SR, 2, N))
     assert not ck.supports_chain_kernel(TChain([("punch", None)], SR, 2, N))

@@ -93,7 +93,8 @@ def test_torch_run_corpus_refusals():
         run_corpus(plug, params, clips.double(), device="cpu")
 
 
-def test_torch_corpus_metrics_match_jax(rng):
+def test_torch_corpus_metrics_match_jax():
+    rng = np.random.default_rng(0x6a0e)  # this test's own input
     per_clip = {"score": rng.uniform(0, 100, 64).astype(np.float32),
                 "width": rng.uniform(0, 1, 64).astype(np.float32)}
     ours = corpus_metrics(to_torch(per_clip, "cpu"))

@@ -11,13 +11,15 @@ and stereo both run, which chip_smoke.py does not cover; texture runs all
 five materials, punch and motion two presets or settings each, and the
 seven-stage Chain runs on the card against the CPU. The chain kernel runs
 three blocks per texture material against its plain version (bit-equal
-audio and state), the Haas delay at 0 and at its largest over seven
-blocks, its stream against its step, and ``run_corpus_chain``'s routes on
-the card. ``analyze_fused`` and ``saturator_step_fused`` run against their
-plain versions (and the latter against the saturator stage step), the chain
-kernel with per-clip constant rows against its plain version run once per
-distinct row, and the serving pool on the card against the plain step with
-the same rows. The inputs
+audio and state) at batches that are not a multiple of its 32 clips per
+CTA (300, 45 and 4099), two runs of one input that must be bit-identical,
+the Haas delay at 0 and at its largest over seven blocks, its stream
+against its step, and ``run_corpus_chain``'s routes on the card.
+``analyze_fused`` and ``saturator_step_fused`` run against their plain
+versions (and the latter against the saturator stage step), the chain
+kernel with per-clip constant rows (at the same batches) against its plain
+version run once per distinct row, and the serving pool on the card
+against the plain step with the same rows. The inputs
 are made here, from a seed, so that the file needs nothing of the JAX
 test harness.
 """
@@ -32,6 +34,8 @@ from juicy_tpu_torch.runtime.plugin import Plugin
 
 SR = 48000.0
 B, N = 300, 256
+#: batches that are not a multiple of the chain kernel's 32 clips per CTA
+RAGGED = (45, 4099)
 
 
 @pytest.fixture
@@ -256,17 +260,17 @@ def test_chain_on_card_matches_cpu(cuda_device):
 # The chain kernel (csrc/chain.cu) against its plain version
 # ---------------------------------------------------------------------------
 
-def _bursts(seed, blocks, device, period=384):
+def _bursts(seed, blocks, device, period=384, batch=B):
     """A quiet bed and a decaying 900 Hz burst every `period` samples from
     a per-clip offset (chip_smoke.py::make_clicks, drawn with numpy), so
     that onsets fall inside the blocks."""
     rng = np.random.default_rng(seed)
     t = np.arange(blocks * N)
-    since = (t[None, :] - rng.integers(0, period, (B, 1))) % period
+    since = (t[None, :] - rng.integers(0, period, (batch, 1))) % period
     burst = np.exp(-since / 120.0) * 0.6 * np.sin(2 * np.pi * 900.0 * since / SR)
     bed = 0.008 * np.sin(2 * np.pi * 220.0 * t / SR)
     x = bed + np.array([1.0, 0.9])[None, :, None] * burst[:, None, :] + \
-        0.002 * rng.standard_normal((B, 2, blocks * N))
+        0.002 * rng.standard_normal((batch, 2, blocks * N))
     return torch.from_numpy(np.clip(x, -0.99, 0.99).astype(np.float32)).to(device)
 
 
@@ -304,18 +308,20 @@ def _assert_chain_equal(res_k, res_p):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", (B, *RAGGED))
 @pytest.mark.parametrize("material", [0, 1, 2, 3, 4])
-def test_chain_kernel_matches_plain(material, cuda_device):
-    """Three streamed blocks at B = 300 (ragged): one launch per block and
-    no stage kernel; audio and every state leaf (texture's ring and LCG,
-    motion's rng and cooldown, the Haas window, cohere's targets) bit-equal
-    to the plain version; onsets inside the blocks; the material's own state
-    moved and no other's."""
+def test_chain_kernel_matches_plain(material, batch, cuda_device):
+    """Three streamed blocks of a batch whose last CTA is partly past B
+    (a lane past B that stored, or a barrier it skipped, would show here
+    or hang): one launch per block and no stage kernel; audio and every
+    state leaf (texture's ring and LCG, motion's rng and cooldown, the Haas
+    window, cohere's targets) bit-equal to the plain version; onsets inside
+    the blocks; the material's own state moved and no other's."""
     from juicy_tpu_torch.kernels import chain_kernel as ck
 
     chain = _chain(material)
-    clips = _bursts(30 + material, 3, cuda_device)
-    st0 = chain.init_state((B,), cuda_device)
+    clips = _bursts(30 + material, 3, cuda_device, batch=batch)
+    st0 = chain.init_state((batch,), cuda_device)
     stage_before = [s.launches for s in (
         sk.punch_stage_step, sk.saturator_stage_step, sk.texture_stage_step,
         sk.motion_stage_step)]
@@ -336,6 +342,30 @@ def test_chain_kernel_matches_plain(material, cuda_device):
     for key in _TEX_MAT_LEAVES:
         moved = not torch.equal(st[2]["dsp"][key], st0[2]["dsp"][key])
         assert moved == (key in _TEX_OWN[material]), key
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("material", [0, 2])
+def test_chain_kernel_deterministic(material, cuda_device):
+    """Two runs of the same input from the same state are bit-identical:
+    no result depends on how the warps of a CTA interleave."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    batch = RAGGED[1]
+    chain = _chain(material)
+    clips = _bursts(80 + material, 2, cuda_device, batch=batch)
+    st0 = chain.init_state((batch,), cuda_device)
+    res_a = ck.chain_kernel_stream(chain, st0, clips)
+    res_b = ck.chain_kernel_stream(chain, st0, clips)
+    torch.cuda.synchronize()
+    assert torch.equal(res_a[0], res_b[0])
+    for sa, sb in zip(res_a[1], res_b[1], strict=True):
+        for group in ("dsp", "analyzer"):
+            for key, v in sa[group].items():
+                assert torch.equal(sb[group][key], v), (group, key)
+    for ma, mb in zip(res_a[2], res_b[2], strict=True):
+        for key, v in ma.items():
+            assert torch.equal(mb[key], v), key
 
 
 @pytest.mark.cuda
@@ -485,23 +515,24 @@ def _rows(chain, b, seed=0):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", (B, *RAGGED))
 @pytest.mark.parametrize("material", [0, 2])
-def test_chain_kernel_params_rows_matches_plain(material, cuda_device):
+def test_chain_kernel_params_rows_matches_plain(material, batch, cuda_device):
     """Per-clip constant rows (stride N_CONSTS) against the plain version
-    run once per distinct row, over two blocks; rows all equal to the
-    chain's give the shared launch bit for bit."""
+    run once per distinct row, over two blocks, ragged batches included;
+    rows all equal to the chain's give the shared launch bit for bit."""
     from juicy_tpu_torch.kernels import chain_kernel as ck
 
     chain = _chain(material)
-    clips = _bursts(90 + material, 2, cuda_device)
-    st0 = chain.init_state((B,), cuda_device)
-    same = [{k: torch.full((B,), float(v)) for k, v in p.items()}
+    clips = _bursts(90 + material, 2, cuda_device, batch=batch)
+    st0 = chain.init_state((batch,), cuda_device)
+    same = [{k: torch.full((batch,), float(v)) for k, v in p.items()}
             for p in chain.params]
     blk = clips[..., :N]
     res_shared = ck.chain_kernel_step(chain, st0, blk)
     res_same = ck.chain_kernel_step(chain, st0, blk, params_rows=same)
     _assert_chain_equal(res_same, res_shared)
-    rows = ck.ParamRows(chain, _rows(chain, B), B)
+    rows = ck.ParamRows(chain, _rows(chain, batch), batch)
     st_k = st_p = st0
     before = ck.chain_kernel_step.launches
     for k in range(2):

@@ -41,7 +41,8 @@ def _assert_metrics(t_m, j_m):
 
 @pytest.mark.parametrize("channels", [1, 2])
 @pytest.mark.parametrize("preset", [name for name, _ in PRESETS])
-def test_torch_saturator_preset(preset, channels, rng):
+def test_torch_saturator_preset(preset, channels):
+    rng = np.random.default_rng(0x6a0c)  # this test's own input
     jplug, jstep, jbatched = _jax(channels)
     tplug = TPlugin("saturator", SR, channels, N)
     params = jplug.preset(preset)
@@ -78,9 +79,10 @@ def test_torch_saturator_preset(preset, channels, rng):
                                atol=1e-6)
 
 
-def test_torch_saturator_batched_params_and_run(rng):
+def test_torch_saturator_batched_params_and_run():
     """Per-clip params (params_batched) and Plugin.run on one clip agree with
     the clip-by-clip path."""
+    rng = np.random.default_rng(0x6a0d)  # this test's own input
     plug = TPlugin("saturator", SR, 2, N)
     names = [name for name, _ in PRESETS[:3]]
     per = [plug.preset(n) for n in names]

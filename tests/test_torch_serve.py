@@ -605,7 +605,7 @@ def test_torch_stream_server_not_ported_raise():
     chain = Chain([("punch", None), ("texture", None), ("infer", None)],
                   SR, 2, BLOCK)
     chain.params[1]["material"] = torch.tensor(0.0)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 3"):
         StreamServer(chain, 2, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -57,7 +57,8 @@ def _clips(rng, channels, blocks):
 
 
 @pytest.mark.parametrize("channels", [1, 2])
-def test_torch_saturator_stage_vs_pallas_interpret(channels, rng, small_tile):
+def test_torch_saturator_stage_vs_pallas_interpret(channels, small_tile):
+    rng = np.random.default_rng(0x6a07)  # this test's own input
     jplug = JPlugin("saturator", SR, channels, N)
     params = jplug.full_params(jplug.preset("Grain Reactor"))
     tparams = to_torch(jax.device_get(dict(params)), "cpu")
@@ -88,10 +89,11 @@ def test_torch_saturator_stage_vs_pallas_interpret(channels, rng, small_tile):
     assert int(t_st["analyzer"]["onset_cooldown"].max()) > 0  # onsets ran
 
 
-def test_torch_stage_step_matches_plugin_batch_step(rng):
+def test_torch_stage_step_matches_plugin_batch_step():
     """The stage step and Plugin.batch_step run the same elementwise audio
     ops in the same order: bit-equal audio; metrics differ only by the
     summation order of the block reductions."""
+    rng = np.random.default_rng(0x6a08)  # this test's own input
     plug = TPlugin("saturator", SR, 2, N)
     params = plug.preset("Mirror Glow")
     clips = torch.from_numpy(_clips(rng, 2, 2))
@@ -110,9 +112,10 @@ def test_torch_stage_step_matches_plugin_batch_step(rng):
                                        rtol=1e-5, atol=1e-5, err_msg=key)
 
 
-def test_torch_stage_wrapper_dispatch(rng):
+def test_torch_stage_wrapper_dispatch():
     """On a CPU tensor the wrapper runs the plain version and launches
     nothing; other devices, batched params and bad shapes raise."""
+    rng = np.random.default_rng(0x6a09)  # this test's own input
     plug = TPlugin("saturator", SR, 1, N)
     params = plug.preset(0)
     blk = torch.from_numpy(_clips(rng, 1, 1)[:5])
@@ -265,10 +268,11 @@ def test_torch_tex_param_list_matches_jax(material):
 
 
 @pytest.mark.parametrize("channels", [1, 2])
-def test_torch_texture_stage_matches_plugin_batch_step(channels, rng):
+def test_torch_texture_stage_matches_plugin_batch_step(channels):
     """The stage step and Plugin.batch_step run the same per-sample body:
     bit-equal audio and state for every material; the LCG ends where
     lcg_advance(rng, C·N) puts it, per block."""
+    rng = np.random.default_rng(0x6a0a)  # this test's own input
     from juicy_tpu_torch.ops.noise import lcg_advance
 
     clips = torch.from_numpy(np.stack([make_clip(rng, channels, 2 * TEX_N)
@@ -334,9 +338,10 @@ def test_torch_texture_kernel_state_conversion():
     tsk.texture_kernel_state(bad, 1)        # no ring: the index is not read
 
 
-def test_torch_texture_wrapper_dispatch(rng):
+def test_torch_texture_wrapper_dispatch():
     """On a CPU tensor the wrapper runs the plain version and launches
     nothing; other devices, batched params and a traced material raise."""
+    rng = np.random.default_rng(0x6a0b)  # this test's own input
     plug = TPlugin("texture", SR, 1, TEX_N).with_static(material=4)
     params = plug.full_params(plug.default_params())
     blk = torch.from_numpy(np.stack([make_clip(rng, 1, TEX_N)
