@@ -20,14 +20,17 @@ on the card from a seed. Phases, each of which raises on failure:
     within 1e-4, other metrics within 1e-5; both times;
 3b. the texture stage kernel against its plain version, the same way, for
     each material 0..4 (gel, metal, wood, plastic, flesh) at the defaults,
-    with every state leaf (the LCG state and the waveguide ring included)
-    bit-equal; the kernel's time per block alone and with the layout
-    permutes, the whole step's and the plain version's;
+    at B = 4096 and at a ragged B = 100 (its last CTA partly past B), with
+    the audio and every state leaf (the LCG state and the waveguide ring
+    included) bit-equal; the kernel's geometry (clips and warps per CTA,
+    registers, shared memory, resident CTAs per SM; no spills); its time
+    per block alone and with the layout permutes, the whole step's and the
+    plain version's; and its time alone at B = 4096 and 8192;
 3c. the punch stage kernel against its plain version, two blocks at
-    B = 4096, N = 512, preset "Solar Snap", on an input with a burst every
-    100 ms at a per-clip offset (onsets inside the blocks): audio
-    <= -120 dBFS, every state leaf bit-equal, onset counts and cooldowns
-    equal; the same four times as 3b;
+    B = 4096 and at B = 100, N = 512, preset "Solar Snap", on an input with
+    a burst every 100 ms at a per-clip offset (onsets inside the blocks):
+    audio and every state leaf bit-equal, onset counts and cooldowns
+    equal; its geometry and the same times as 3b;
 3d. the motion stage kernel the same way at its defaults, with ``rng`` and
     ``onset_cooldown`` among the state leaves and pass 1's LCG rolled in
     most clips;
@@ -125,7 +128,13 @@ CHAIN_BATCH = 256
 CHAIN_CORPUS_BATCH = 8192        # bench.py:798, the full_chain row
 #: batches at which 4e times the chain kernel alone
 CHAIN_TIMED_BATCHES = (4096, 8192, 16384)
-#: 3e's ragged batch: not a multiple of the chain kernel's 32 clips per CTA
+#: batches at which 3b and 3c time the texture and punch kernels alone
+STAGE_TIMED_BATCHES = (4096, 8192)
+#: clock cycles of the spin kernel that kernel_ms queues its launches behind
+#: (~10 ms, longer than the host takes to make 20 launches)
+SPIN_CYCLES = 20_000_000
+#: 3b's, 3c's and 3e's ragged batch: not a multiple of the warp-role
+#: kernels' 32 clips per CTA
 RAGGED_BATCH = 100
 CHAIN_CHECK_BLOCKS = 8
 #: corpus paths whose never-path check runs at full depth (4, 4b, 4c); the
@@ -217,6 +226,24 @@ def cuda_ms(fn, reps):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps):
+    """Mean device milliseconds per call of `fn`, a kernel launch: the calls
+    are queued behind a spin kernel (``torch.cuda._sleep``) so that they run
+    back to back on the card, and the host's time to make each launch,
+    which can exceed a short kernel's, is not counted."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -421,14 +448,14 @@ def phase_kernel_vs_plain(device, plugin, params):
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
-def texture_kernel_vs_plain(device, mode, x):
+def texture_kernel_vs_plain(device, mode, x, timed=True):
     """One material: kernel and plain version over two blocks, each from its
-    own copy of the state; then the times per block."""
+    own copy of the state; then, if `timed`, the times per block."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
     from juicy_tpu_torch.models import texture as tex
     from juicy_tpu_torch.runtime.plugin import Plugin
 
-    b, n = BATCH, BLOCK
+    b, n = x.shape[0], BLOCK
     plugin = Plugin("texture", SR, CHANNELS, n).with_static(material=mode)
     params = plugin.full_params(plugin.default_params())
     st0 = plugin.init_state((b,), device)
@@ -443,10 +470,10 @@ def texture_kernel_vs_plain(device, mode, x):
         lanes_p = sk._tex_lanes_plain(blk, st_p["dsp"], sk.pack_lane(
             st_p["analyzer"], b), params, SR, mode)
         (out_k, dsp_k, *raw_k), (out_p, dsp_p, *raw_p) = lanes_k, lanes_p
-        tag = f"texture {MATERIALS[mode]} block {i}"
+        tag = f"texture {MATERIALS[mode]} B={b} block {i}"
         db = residual_dbfs(out_k, out_p)
         worst = max(worst, max_diff(out_k, out_p))
-        if db > -120.0:
+        if not torch.equal(out_k, out_p):
             raise AssertionError(f"{tag}: kernel vs plain {db:.1f} dBFS")
         for key, v in dsp_p.items():
             if not torch.equal(dsp_k[key], v):
@@ -464,11 +491,13 @@ def texture_kernel_vs_plain(device, mode, x):
         print(f"{tag}: audio {db:.1f} dBFS, state bit-equal, onsets "
               f"{int(raw_k[1][1].sum())}, score "
               f"{max_diff(m_k['score'], m_p['score']):.3g}")
+    if not timed:
+        return {"max_abs_err": worst}
 
     blk = x[..., :n]
     lane0 = sk.pack_lane(st_k["analyzer"], b)
     bufs = sk.tex_cuda_buffers(blk, st_k["dsp"], lane0, mode)
-    ms = cuda_ms(lambda: sk.tex_cuda_launch(bufs, params, SR, mode), 20)
+    ms = kernel_ms(lambda: sk.tex_cuda_launch(bufs, params, SR, mode), 20)
     layout_ms = cuda_ms(lambda: sk._tex_lanes_cuda(blk, st_k["dsp"], lane0,
                                                    params, SR, mode), 20)
     step_ms = cuda_ms(lambda: sk.texture_stage_step(params, st_k, blk, SR), 20)
@@ -488,9 +517,20 @@ def texture_kernel_vs_plain(device, mode, x):
 
 
 def phase_texture_kernel_vs_plain(device):
+    """3b: every material at B = 4096 and at a ragged batch (its last CTA
+    partly past B), the kernel's geometry and its times alone."""
     x = make_batch(BATCH, CHANNELS, 2 * BLOCK, device, seed=13)
-    return {MATERIALS[mode]: texture_kernel_vs_plain(device, mode, x)
-            for mode in range(5)}
+    ragged = make_batch(RAGGED_BATCH, CHANNELS, 2 * BLOCK, device, seed=15)
+    res = {}
+    for mode in range(5):
+        geo = stage_geometry(device, "texture", mode)
+        r = texture_kernel_vs_plain(device, mode, x)
+        err = texture_kernel_vs_plain(device, mode, ragged, timed=False)
+        r["max_abs_err"] = max(r["max_abs_err"], err["max_abs_err"])
+        r["geometry"] = geo
+        r["ms_by_batch"] = stage_ms_by_batch(device, "texture", mode)
+        res[MATERIALS[mode]] = r
+    return res
 
 
 def corpus_run(tag, plugin, params, clips, step):
@@ -555,13 +595,13 @@ def phase_corpus(device, plugin, params):
                       sk.saturator_stage_step)
 
 
-def model_kernel_vs_plain(device, name, params, x):
+def model_kernel_vs_plain(device, name, params, x, timed=True):
     """Punch or motion: kernel and plain version over two blocks, each from
-    its own copy of the state; then the times per block."""
+    its own copy of the state; then, if `timed`, the times per block."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
     from juicy_tpu_torch.runtime.plugin import Plugin
 
-    b, n = BATCH, BLOCK
+    b, n = x.shape[0], BLOCK
     plugin = Plugin(name, SR, CHANNELS, n)
     lanes_cuda = getattr(sk, f"_{name}_lanes_cuda")
     lanes_plain = getattr(sk, f"_{name}_lanes_plain")
@@ -573,10 +613,10 @@ def model_kernel_vs_plain(device, name, params, x):
             st_k["analyzer"], b), params, SR)
         out_p, dsp_p, *raw_p = lanes_plain(blk, st_p["dsp"], sk.pack_lane(
             st_p["analyzer"], b), params, SR)
-        tag = f"{name} block {i}"
+        tag = f"{name} B={b} block {i}"
         db = residual_dbfs(out_k, out_p)
         worst = max(worst, max_diff(out_k, out_p))
-        if db > -120.0:
+        if db > -120.0 or (name == "punch" and not torch.equal(out_k, out_p)):
             raise AssertionError(f"{tag}: kernel vs plain {db:.1f} dBFS")
         if set(dsp_k) != set(dsp_p):
             raise AssertionError(f"{tag}: state keys differ")
@@ -604,13 +644,15 @@ def model_kernel_vs_plain(device, name, params, x):
     if name == "motion" and rolled < 0.9:
         raise AssertionError(f"motion: pass 1 rolled the LCG in only "
                              f"{rolled:.1%} of clips")
+    if not timed:
+        return {"max_abs_err": worst}
 
     blk = x[..., :n]
     lane0 = sk.pack_lane(st_k["analyzer"], b)
     bufs = getattr(sk, f"{name}_cuda_buffers")(blk, st_k["dsp"], lane0)
     launch = getattr(sk, f"{name}_cuda_launch")
     step = stage_steps()[name]
-    ms = cuda_ms(lambda: launch(bufs, params, SR), 20)
+    ms = kernel_ms(lambda: launch(bufs, params, SR), 20)
     layout_ms = cuda_ms(lambda: lanes_cuda(blk, st_k["dsp"], lane0, params,
                                            SR), 20)
     step_ms = cuda_ms(lambda: step(params, st_k, blk, SR), 20)
@@ -633,12 +675,22 @@ def phase_punch_motion_kernels(device):
     # one burst per clip, somewhere in the two blocks
     x = make_clicks(BATCH, CHANNELS, 2 * BLOCK, device, seed=19,
                     period=2 * BLOCK)
+    ragged = make_clicks(RAGGED_BATCH, CHANNELS, 2 * BLOCK, device, seed=21,
+                         period=2 * BLOCK)
     punch = Plugin("punch", SR, CHANNELS, BLOCK)
     motion = Plugin("motion", SR, CHANNELS, BLOCK)
-    return {"punch": model_kernel_vs_plain(device, "punch",
-                                           punch.preset(PUNCH_PRESET), x),
-            "motion": model_kernel_vs_plain(device, "motion",
-                                            motion.default_params(), x)}
+    geo = stage_geometry(device, "punch")
+    res = {"punch": model_kernel_vs_plain(device, "punch",
+                                          punch.preset(PUNCH_PRESET), x),
+           "motion": model_kernel_vs_plain(device, "motion",
+                                           motion.default_params(), x)}
+    err = model_kernel_vs_plain(device, "punch", punch.preset(PUNCH_PRESET),
+                                ragged, timed=False)
+    res["punch"]["max_abs_err"] = max(res["punch"]["max_abs_err"],
+                                      err["max_abs_err"])
+    res["punch"]["geometry"] = geo
+    res["punch"]["ms_by_batch"] = stage_ms_by_batch(device, "punch")
+    return res
 
 
 def phase_punch_motion_corpus(device):
@@ -731,38 +783,92 @@ def chain_kernel_ms(chain, states, blk):
             cuda_ms(with_layout, 20))
 
 
-def chain_ptxas(mode):
-    """The build log's ptxas lines for chain_kernel<mode>."""
+def kernel_ptxas(mangled):
+    """The build log's ptxas lines for the kernel whose mangled name holds
+    `mangled`."""
     from juicy_tpu_torch.kernels import _build
 
     lines, on = [], False
     for line in _build.build_log().splitlines():
         if "Compiling entry function" in line:
-            on = f"chain_kernelILi{mode}E" in line
+            on = mangled in line
         elif on and ("registers" in line or "spill" in line
                      or "smem" in line):
             lines.append(line.strip())
     return lines
 
 
-def chain_geometry(device, mode):
-    """The chain kernel's geometry for `mode` at N = BLOCK, printed: clips
-    and warps per CTA, registers and shared memory, resident CTAs per SM."""
-    from juicy_tpu_torch.kernels import chain_kernel as ck
-
-    geo = ck.chain_geometry(mode, BLOCK, device)
-    print(f"chain kernel geometry ({MATERIALS[mode]}, N={BLOCK}): "
+def show_geometry(tag, geo, mangled):
+    """Print a warp-role kernel's geometry (clips and warps per CTA,
+    registers and shared memory, resident CTAs per SM) and fail on
+    spills."""
+    print(f"{tag} geometry (N={BLOCK}): "
           f"{geo['clips_per_cta']} clips and {geo['warps_per_cta']} warps "
           f"({geo['threads_per_cta']} threads) per CTA, "
           f"{geo['registers_per_thread']} registers and "
           f"{geo['local_bytes_per_thread']} local bytes per thread, "
           f"{geo['smem_bytes_per_cta']} bytes of shared memory per CTA, "
           f"{geo['ctas_per_sm']} CTAs resident per SM, chunks of "
-          f"{geo['chunk_samples']} samples; ptxas: {chain_ptxas(mode)}")
+          f"{geo['chunk_samples']} samples; ptxas: {kernel_ptxas(mangled)}")
     if geo["local_bytes_per_thread"]:
-        raise AssertionError(f"chain_kernel<{mode}> spills "
+        raise AssertionError(f"{tag} spills "
                              f"({geo['local_bytes_per_thread']} local bytes)")
     return geo
+
+
+def chain_geometry(device, mode):
+    """The chain kernel's geometry for `mode` at N = BLOCK, printed."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    return show_geometry(f"chain kernel ({MATERIALS[mode]})",
+                         ck.chain_geometry(mode, BLOCK, device),
+                         f"chain_kernelILi{mode}E")
+
+
+def stage_geometry(device, name, mode=None):
+    """The punch or texture kernel's geometry, stereo, at N = BLOCK,
+    printed."""
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+
+    if name == "punch":
+        return show_geometry("punch kernel", sk.punch_geometry(BLOCK, 2, device),
+                             "punch_stage_kernelILi2E")
+    return show_geometry(f"texture kernel ({MATERIALS[mode]})",
+                         sk.texture_geometry(mode, BLOCK, 2, device),
+                         f"texture_stage_kernelILi2ELi{mode}E")
+
+
+def stage_alone_ms(device, name, b, mode=None):
+    """The punch or texture kernel's ms per block alone at batch `b` (N =
+    BLOCK, stereo) on prepared buffers, from a fresh state."""
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+    from juicy_tpu_torch.runtime.plugin import Plugin
+
+    if name == "punch":
+        plugin = Plugin("punch", SR, CHANNELS, BLOCK)
+        params = plugin.preset(PUNCH_PRESET)
+        x = make_clicks(b, CHANNELS, BLOCK, device, seed=41)
+        st = plugin.init_state((b,), device)
+        bufs = sk.punch_cuda_buffers(x, st["dsp"],
+                                     sk.pack_lane(st["analyzer"], b))
+        return kernel_ms(lambda: sk.punch_cuda_launch(bufs, params, SR), 20)
+    plugin = Plugin("texture", SR, CHANNELS, BLOCK).with_static(material=mode)
+    params = plugin.full_params(plugin.default_params())
+    x = make_batch(b, CHANNELS, BLOCK, device, seed=41)
+    st = plugin.init_state((b,), device)
+    bufs = sk.tex_cuda_buffers(x, sk.texture_kernel_state(st["dsp"], mode),
+                               sk.pack_lane(st["analyzer"], b), mode)
+    return kernel_ms(lambda: sk.tex_cuda_launch(bufs, params, SR, mode), 20)
+
+
+def stage_ms_by_batch(device, name, mode=None):
+    tag = f"{name} {MATERIALS[mode]}" if name == "texture" else name
+    by_batch = {}
+    for bt in STAGE_TIMED_BATCHES:
+        by_batch[bt] = stage_alone_ms(device, name, bt, mode)
+        print(f"{tag} kernel alone at B={bt}, N={BLOCK}: {by_batch[bt]:.4f} ms "
+              f"per block")
+    return by_batch
 
 
 def chain_kernel_vs_plain(device, mode, x, timed=True):
@@ -919,10 +1025,10 @@ def phase_chain_corpus(device):
               f"per block (bound {bms:.4f} ms)")
     blk = clips[..., :n]
     st0 = chain.init_state((b,), device)
-    kernel_ms, _layout_ms = chain_kernel_ms(chain, st0, blk)
+    chain_ms, _layout_ms = chain_kernel_ms(chain, st0, blk)
     plain_ms = cuda_ms(lambda: ck.chain_kernel_step_plain(chain, st0, blk), 1)
     bound_ms, bound_by = chain_bound(b, CHANNELS, n, 0, 0.0, haas)
-    print(f"chain kernel per block at B={b}, N={n}: {kernel_ms:.4f} ms alone, "
+    print(f"chain kernel per block at B={b}, N={n}: {chain_ms:.4f} ms alone, "
           f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms ({bound_by})")
 
     t0 = time.perf_counter()
@@ -943,7 +1049,7 @@ def phase_chain_corpus(device):
     if not same:
         raise AssertionError("chain: the timed run's first clips differ "
                              "from the check run")
-    return {"launches": launches, "wall": wall, "ms": kernel_ms,
+    return {"launches": launches, "wall": wall, "ms": chain_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "ms_by_batch": by_batch}
 
@@ -1371,6 +1477,7 @@ def main():
         "ms": ref["ms"], "plain_ms": ref["plain_ms"],
         "bound_ms": ref["bound_ms"], "bound_by": ref["bound_by"],
         "library_ms": None,
+        "ms_by_batch": ref["ms_by_batch"],
         "timed_material": MATERIALS[REFERENCE_MATERIAL],
         "launches_by_material": tex_launches,
         "by_material": tex_timing,

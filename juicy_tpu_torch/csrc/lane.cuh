@@ -95,4 +95,76 @@ __device__ __forceinline__ void lane_step(Lane& s, float l, float r,
   s.r_acc = s.r_acc + r * r;
 }
 
+// lane_step split in three for the stage kernels (stage_lane.cuh), which
+// run the parts on three warps: the envelopes, which give the transient;
+// the transient's sum and the onsets (count and cooldown); the energies
+// (the band one-poles and their energies, then the six stateless sums:
+// rms, peak, side, corr, L^2, R^2). Each variable gets the same operations
+// in the same order as in lane_step.
+__device__ __forceinline__ float lane_step_envelopes(Lane& s, float l,
+                                                     float r,
+                                                     const LaneConsts& k) {
+  const float mono = 0.5f * (l + r);
+  const float x = fabsf(mono);
+  const float cs = x > s.s_env ? k.atk_s : k.rel_s;
+  s.s_env = (1.0f - cs) * x + cs * s.s_env;
+  const float cl = x > s.l_env ? k.atk_l : k.rel_l;
+  s.l_env = (1.0f - cl) * x + cl * s.l_env;
+  return fmaxf(0.0f, s.s_env - s.l_env);
+}
+
+__device__ __forceinline__ void lane_step_onsets(Lane& s, float transient,
+                                                 const LaneConsts& k) {
+  s.t_acc = s.t_acc + transient;
+  s.cooldown = fmaxf(s.cooldown - 1.0f, 0.0f);
+  const bool onset = (transient > 0x1.70a3d8p-5f) && (s.cooldown <= 0.0f);
+  s.count = s.count + (onset ? 1.0f : 0.0f);
+  s.cooldown = onset ? k.cd_samples : s.cooldown;
+}
+
+__device__ __forceinline__ void lane_step_energy(Lane& s, float l, float r,
+                                                 const LaneConsts& k) {
+  const float mono = 0.5f * (l + r);
+  s.lo = s.lo + k.low_c * (mono - s.lo);
+  s.hi = s.hi + k.high_c * (mono - s.hi);
+  const float high_v = mono - s.hi;
+  s.lo_acc = s.lo_acc + s.lo * s.lo;
+  s.hi_acc = s.hi_acc + high_v * high_v;
+  s.rms_acc = s.rms_acc + mono * mono;
+  s.peak = fmaxf(s.peak, fabsf(mono));
+  const float side = 0.5f * (l - r);
+  s.side_acc = s.side_acc + side * side;
+  s.corr_acc = s.corr_acc + l * r;
+  s.l_acc = s.l_acc + l * l;
+  s.r_acc = s.r_acc + r * r;
+}
+
+// lane_store's rows of each part.
+__device__ __forceinline__ void lane_store_envelopes(const Lane& s, float* fin,
+                                                     int b, int B) {
+  fin[0 * B + b] = s.s_env;
+  fin[1 * B + b] = s.l_env;
+}
+
+__device__ __forceinline__ void lane_store_onsets(const Lane& s, float* fin,
+                                                  float* acc, int b, int B) {
+  fin[4 * B + b] = s.cooldown;
+  acc[0 * B + b] = s.t_acc;
+  acc[1 * B + b] = s.count;
+}
+
+__device__ __forceinline__ void lane_store_energy(const Lane& s, float* fin,
+                                                  float* acc, int b, int B) {
+  fin[2 * B + b] = s.lo;
+  fin[3 * B + b] = s.hi;
+  acc[2 * B + b] = s.lo_acc;
+  acc[3 * B + b] = s.hi_acc;
+  acc[4 * B + b] = s.rms_acc;
+  acc[5 * B + b] = s.peak;
+  acc[6 * B + b] = s.side_acc;
+  acc[7 * B + b] = s.corr_acc;
+  acc[8 * B + b] = s.l_acc;
+  acc[9 * B + b] = s.r_acc;
+}
+
 }  // namespace juicy

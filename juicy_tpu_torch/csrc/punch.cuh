@@ -42,4 +42,28 @@ __device__ __forceinline__ float punch_sample(float d, float& fast,
   return (d + k.mix * (wet - d)) * k.out_gain;
 }
 
+// punch_sample split in two for punch_stage.cu, which runs the followers
+// and the shaping on different warps: the same operations in the same
+// order.
+__device__ __forceinline__ void punch_follow(float d, float& fast,
+                                             float& slow,
+                                             const PunchConsts& k) {
+  const float a = fabsf(d);
+  fast = k.one_fast * a + k.fast_c * fast;
+  slow = k.one_slow * a + k.slow_c * slow;
+}
+
+__device__ __forceinline__ float punch_shape(float d, float fast, float slow,
+                                             const PunchConsts& k) {
+  const float transient = fmaxf(fast - slow, 0.0f);
+  const float punch_gain = 1.0f + k.punch_k * pow32(transient, k.curve_exp);
+  const float sustain_gain =
+      1.0f + k.sustain_k * fmaxf(slow - transient * 0.6f, 0.0f);
+  float wet = d * punch_gain * sustain_gain;
+  const float soft = tanh32(wet * k.drive) / k.tanh_drive;
+  const float hard = clamp_to(wet * k.hard_k, -0.95f, 0.95f);
+  wet = soft + k.clip * (hard - soft);
+  return (d + k.mix * (wet - d)) * k.out_gain;
+}
+
 }  // namespace juicy

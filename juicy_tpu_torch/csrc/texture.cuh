@@ -202,4 +202,121 @@ __device__ __forceinline__ float flesh_step(float* st, const TexDrive& v,
   return tanh32((0.50f * v.core + 1.34f * nl) * (0.98f + 0.16f * k.texture));
 }
 
+// ---- The same bodies split for texture_stage.cu, which runs the carried
+// recurrences on their own warps and leaves the pointwise work that feeds
+// no state to helper warps. Each piece does the operations of the composed
+// body above in the same order, so the results are the same floats.
+
+// tex_front's trail, from the impact alone.
+__device__ __forceinline__ float tex_trail(float impact, const TexConsts& k) {
+  return clamp_to(1.0f - impact, 0.0f, 1.0f) * k.tail_shape;
+}
+
+// Gel and flesh without their final tanh32: the argument it takes.
+__device__ __forceinline__ float gel_arg(float* st, const TexDrive& v,
+                                         const TexConsts& k) {
+  const float zeta = 0.62f + v.trail * 0x1.a8f5c4p-1f;  // f32(1.45) - f32(0.62)
+  const float cdamp = 2.0f * zeta * k.m[0];
+  const float force = v.core * (0.52f + 0.62f * v.body);
+  const float acc = k.m[1] * (force - st[0]) - cdamp * st[1];
+  st[1] = st[1] + acc;
+  st[0] = st[0] + st[1];
+  const float shaped = 0.48f * v.core + 1.85f * st[0];
+  return shaped * (0.96f + 0.28f * k.texture);
+}
+
+__device__ __forceinline__ float flesh_arg(float* st, const TexDrive& v,
+                                           const TexConsts& k) {
+  const float force = v.core * (0.55f + 0.65f * v.body);
+  const float acc_a = k.m[0] * (force - st[0]) - k.m[2] * st[1] -
+                      k.m[4] * (st[0] - st[2]);
+  const float acc_b = k.m[1] * (st[0] - st[2]) - k.m[3] * st[3];
+  st[1] = st[1] + acc_a;
+  st[3] = st[3] + acc_b;
+  st[0] = st[0] + st[1];
+  st[2] = st[2] + st[3];
+  const float tissue = 0.92f * st[0] + 0.58f * st[2];
+  const float nl = tissue - 0.19f * tissue * tissue * tissue;
+  return (0.50f * v.core + 1.34f * nl) * (0.98f + 0.16f * k.texture);
+}
+
+// Metal's pole coefficient a1 of mode j, from the impact alone.
+__device__ __forceinline__ float metal_a1(float impact, int j,
+                                          const TexConsts& k) {
+  const float bend = 1.0f + 0.09f * impact;
+  const float f = clamp_to(k.m[j] * bend, 20.0f, k.m[16]);
+  return 2.0f * k.m[4 + j] * cos32(f * k.m[17]);
+}
+
+// Metal's mode bank given the four a1.
+__device__ __forceinline__ float metal_bank(float* st, float core,
+                                            float impact, float hp,
+                                            const float* a1,
+                                            const TexConsts& k) {
+  const float exc = core * (0.19f + 0.52f * impact);
+  float y[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    y[j] = exc * k.m[12 + j] + a1[j] * st[j] + k.m[8 + j] * st[4 + j];
+  const float modes = ((y[0] + y[1]) + y[2]) + y[3];
+  const float bright = 0.03f * impact * (core - hp);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    st[4 + j] = st[j];
+    st[j] = y[j];
+  }
+  return (0.44f * core + 0.42f * modes + bright) * (0.78f + 0.10f * k.texture);
+}
+
+// tex_back up to the wet envelope: the noise high-pass, dynamics, tail and
+// wet envelope; returns the wet signal before the auto-gain.
+__device__ __forceinline__ float tex_back_wet(float shaped, float w,
+                                              float impact, float body,
+                                              TexChan& s,
+                                              const TexConsts& k) {
+  const float trail = tex_trail(impact, k);
+  s.noise_hp = s.noise_hp + 0.08f * (w - s.noise_hp);
+  const float rough = w - s.noise_hp;
+  shaped = shaped + rough * (0.004f + 0.022f * k.texture) *
+                        (0.14f + 0.64f * impact);
+  const float dynamics =
+      1.0f + impact * (0.18f + k.texture * 0.12f) + body * 0.06f;
+  shaped = shaped * dynamics * k.mat_trim;
+  const float tail_input =
+      clamp_to(shaped, -2.0f, 2.0f) * (0.45f + 0.55f * trail);
+  s.tail = tail_input + s.tail * k.decay;
+  const float wet = shaped + s.tail * (0.30f + 0.45f * trail);
+  const float wet_abs = fabsf(wet);
+  const float wet_c = wet_abs > s.wet_env ? k.wet_atk : k.wet_rel;
+  s.wet_env = wet_c * s.wet_env + (1.0f - wet_c) * wet_abs;
+  return wet;
+}
+
+// The auto-gain (a true division), the mix and the output gain: pointwise,
+// given the wet signal and the wet envelope after this sample.
+__device__ __forceinline__ float tex_back_gain(float d, float wet,
+                                               float wet_env,
+                                               const TexConsts& k) {
+  const float auto_comp = k.auto_gain_base / (1.0f + 1.8f * wet_env);
+  wet = wet * clamp_to(auto_comp, 0.18f, 1.0f);
+  const float mixed = d + k.mix * (wet - d);
+  return mixed * k.out_gain;
+}
+
+// The DC blocker and the limiter; returns the output. The limiter's
+// division is taken only where its result is used (peak > 0.88).
+__device__ __forceinline__ float tex_back_limit(float pre_dc, TexChan& s,
+                                                const TexConsts& k) {
+  const float dc = pre_dc - s.dc_in + k.dc_r * s.dc_out;
+  s.dc_in = pre_dc;
+  s.dc_out = dc;
+  const float peak = fabsf(dc);
+  if (peak > 0.88f)
+    s.pg = fminf(s.pg, (0.88f / peak) * 0.98f);
+  else
+    s.pg = s.pg + (1.0f - s.pg) * 0.0028f;
+  const float o = dc * clamp_to(s.pg, 0.2f, 1.0f);
+  return clamp_to(o, -0.98f, 0.98f);
+}
+
 }  // namespace juicy

@@ -133,6 +133,10 @@ def load_library() -> ctypes.CDLL:
     lib.juicy_chain_block.restype = i32
     lib.juicy_chain_geometry.argtypes = [i32, i32, ptr]
     lib.juicy_chain_geometry.restype = i32
+    lib.juicy_punch_geometry.argtypes = [i32, i32, ptr]
+    lib.juicy_punch_geometry.restype = i32
+    lib.juicy_texture_geometry.argtypes = [i32, i32, i32, ptr]
+    lib.juicy_texture_geometry.restype = i32
     lib.juicy_analyzer_block.argtypes = [ptr] * 4 + [i32] * 3 + [f32] * 7 + [ptr]
     lib.juicy_analyzer_block.restype = i32
     lib.juicy_cuda_error_string.argtypes = [i32]

@@ -507,30 +507,10 @@ class KernelChain:
         ]
 
 
-#: juicy_chain_geometry's fields, in its order
-GEOMETRY_KEYS = ("clips_per_cta", "warps_per_cta", "threads_per_cta",
-                 "smem_bytes_per_cta", "ctas_per_sm", "registers_per_thread",
-                 "local_bytes_per_thread", "chunk_samples")
-
-
 def chain_geometry(mode: int, n: int, device=None) -> Dict[str, int]:
     """The chain kernel's launch geometry for texture material `mode` and
-    block size `n` on the card: clips and warps per CTA, its shared memory,
-    the CTAs resident per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
-    and the registers and local (spill) bytes per thread
-    (``cudaFuncGetAttributes``)."""
-    import ctypes
-
-    from juicy_tpu_torch.kernels import _build
-
-    lib = _build.load_library()
-    g = (ctypes.c_int * len(GEOMETRY_KEYS))()
-    with torch.cuda.device(device):
-        err = lib.juicy_chain_geometry(int(mode), int(n), g)
-    if err != 0:
-        raise RuntimeError(f"juicy_chain_geometry failed: CUDA error {err} "
-                           f"({_build.error_string(lib, err)})")
-    return dict(zip(GEOMETRY_KEYS, g))
+    block size `n` on the card (stage_kernels.read_geometry's fields)."""
+    return sk.read_geometry("juicy_chain_geometry", mode, n, device=device)
 
 
 # ---------------------------------------------------------------------------

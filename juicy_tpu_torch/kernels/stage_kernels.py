@@ -837,3 +837,45 @@ def motion_stage_step(params, state, block, sr: float):
 
 #: kernel launches made by motion_stage_step (CUDA tensors only)
 motion_stage_step.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Launch geometry of the warp-role kernels, read off the card
+# ---------------------------------------------------------------------------
+
+#: the fields a geometry entry (juicy_*_geometry) writes, in its order
+GEOMETRY_KEYS = ("clips_per_cta", "warps_per_cta", "threads_per_cta",
+                 "smem_bytes_per_cta", "ctas_per_sm", "registers_per_thread",
+                 "local_bytes_per_thread", "chunk_samples")
+
+
+def read_geometry(entry: str, *args: int, device=None) -> Dict[str, int]:
+    """Call the geometry entry `entry` of the kernel library with `args`:
+    clips and warps per CTA, its shared memory, the CTAs resident per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), and the registers
+    and local (spill) bytes per thread (``cudaFuncGetAttributes``)."""
+    import ctypes
+
+    from juicy_tpu_torch.kernels import _build
+
+    lib = _build.load_library()
+    g = (ctypes.c_int * len(GEOMETRY_KEYS))()
+    with torch.cuda.device(device):
+        err = getattr(lib, entry)(*(int(v) for v in args), g)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err} "
+                           f"({_build.error_string(lib, err)})")
+    return dict(zip(GEOMETRY_KEYS, g))
+
+
+def punch_geometry(n: int, channels: int = 2, device=None) -> Dict[str, int]:
+    """The punch stage kernel's geometry for block size `n`."""
+    return read_geometry("juicy_punch_geometry", channels, n, device=device)
+
+
+def texture_geometry(mode: int, n: int, channels: int = 2,
+                     device=None) -> Dict[str, int]:
+    """The texture stage kernel's geometry for material `mode` and block
+    size `n`."""
+    return read_geometry("juicy_texture_geometry", mode, channels, n,
+                         device=device)

@@ -9,7 +9,12 @@ JAX; on a machine without it, run it as
 The batch is ragged (not a multiple of the kernels' thread blocks) and mono
 and stereo both run, which chip_smoke.py does not cover; texture runs all
 five materials, punch and motion two presets or settings each, and the
-seven-stage Chain runs on the card against the CPU. The chain kernel runs
+seven-stage Chain runs on the card against the CPU. The texture and punch
+kernels also run at batches that are not a multiple of their 32 clips per
+CTA (45 and 4099) and at a block length that is not a multiple of their
+chunk; at 4099 each first block runs twice and must give the same bits;
+plastic runs at 3 kHz, where its waveguide's second tap falls inside the
+chunk being written. The chain kernel runs
 three blocks per texture material against its plain version (bit-equal
 audio and state) at batches that are not a multiple of its 32 clips per
 CTA (300, 45 and 4099), two runs of one input that must be bit-identical,
@@ -34,8 +39,11 @@ from juicy_tpu_torch.runtime.plugin import Plugin
 
 SR = 48000.0
 B, N = 300, 256
-#: batches that are not a multiple of the chain kernel's 32 clips per CTA
+#: batches that are not a multiple of the warp-role kernels' 32 clips per
+#: CTA (the chain, texture and punch kernels)
 RAGGED = (45, 4099)
+#: a block length that is not a multiple of the stage kernels' chunk
+N_ODD = 203
 
 
 @pytest.fixture
@@ -45,13 +53,13 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _clips(seed, channels, blocks, device):
+def _clips(seed, channels, blocks, device, batch=B, n=N):
     """Noise over a 220 Hz sine whose level doubles for 10 ms every 60 ms
     (onsets), clipped to +-0.99."""
     rng = np.random.default_rng(seed)
-    t = np.arange(blocks * N)
+    t = np.arange(blocks * n)
     sig = 0.25 * np.sin(2 * np.pi * 220.0 * t / SR) * (1.0 + (t % 2880 < 480))
-    x = sig + 0.05 * rng.standard_normal((B, channels, blocks * N))
+    x = sig + 0.05 * rng.standard_normal((batch, channels, blocks * n))
     return torch.from_numpy(np.clip(x, -0.99, 0.99).astype(np.float32)).to(device)
 
 
@@ -107,25 +115,46 @@ _TEX_MAT_LEAVES = ("spring_pos", "modal_y1", "prev_wave", "waveguide",
                    "flesh_pos_a")
 
 
+def _kernel_form(st, material):
+    return {"analyzer": st["analyzer"],
+            "dsp": sk.texture_kernel_state(st["dsp"], material)}
+
+
+# (material, batch, block length, sample rate): every material at the
+# default batch, the ragged ones and an odd block length; plastic at 3 kHz,
+# where its waveguide delay is 8 samples, one chunk, and the
+# interpolation's second tap falls inside the chunk being written
+_TEX_CASES = [(m, b, n, SR) for m in range(5)
+              for b, n in ((B, N), (RAGGED[0], N), (RAGGED[1], N),
+                           (RAGGED[0], N_ODD))] + [(3, RAGGED[0], N, 3000.0)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("channels", [1, 2])
-@pytest.mark.parametrize("material", [0, 1, 2, 3, 4])
-def test_texture_stage_kernel_matches_plain(material, channels, cuda_device):
+@pytest.mark.parametrize("material,batch,n,sr", _TEX_CASES)
+def test_texture_stage_kernel_matches_plain(material, batch, n, sr, channels,
+                                            cuda_device):
     """Two streamed blocks per material: audio and every state leaf
     bit-equal (the ring included), onset cooldowns equal, metrics within
-    1e-5 (scores 1e-4); the material's own state moved, the others not."""
-    plug = Plugin("texture", SR, channels, N).with_static(material=material)
+    1e-5 (scores 1e-4); the material's own state moved, the others not. At
+    the largest batch the first block runs twice from copies of one state
+    and must give the same bits (no result depends on how the warps of a
+    CTA interleave)."""
+    plug = Plugin("texture", sr, channels, n).with_static(material=material)
     params = plug.full_params(plug.default_params())
-    clips = _clips(10 + material, channels, 2, cuda_device)
-    st0 = plug.init_state((B,), cuda_device)
-    st_k, st_p = ({"analyzer": st0["analyzer"],
-                   "dsp": sk.texture_kernel_state(st0["dsp"], material)}
-                  for _ in range(2))
+    clips = _clips(10 + material, channels, 2, cuda_device, batch, n)
+    st0 = plug.init_state((batch,), cuda_device)
+    st_k, st_p = (_kernel_form(st0, material) for _ in range(2))
+    if batch == RAGGED[1]:
+        runs = [sk.texture_stage_step(params, _kernel_form(st0, material),
+                                      clips[..., :n], sr) for _ in range(2)]
+        torch.cuda.synchronize()
+        _assert_same_step(*runs)
     before = sk.texture_stage_step.launches
     for k in range(2):
-        blk = clips[..., k * N:(k + 1) * N]
-        out_k, st_k, m_k = sk.texture_stage_step(params, st_k, blk, SR)
-        out_p, st_p, m_p = sk.texture_stage_step_plain(params, st_p, blk, SR)
+        blk = clips[..., k * n:(k + 1) * n]
+        out_k, st_k, m_k = sk.texture_stage_step(params, st_k, blk, sr)
+        out_p, st_p, m_p = sk.texture_stage_step_plain(params, st_p, blk, sr)
         torch.cuda.synchronize()
         assert out_k.is_cuda and out_k.shape == blk.shape
         assert torch.equal(out_k, out_p)
@@ -142,12 +171,22 @@ def test_texture_stage_kernel_matches_plain(material, channels, cuda_device):
         moved = not torch.equal(final[key], st0["dsp"][key])
         assert moved == (key in _TEX_OWN[material]), key
     assert torch.equal(final["rng"], _lcg_advance_twice(st0["dsp"]["rng"],
-                                                        channels))
+                                                        channels, n))
 
 
-def _lcg_advance_twice(rng, channels):
+def _lcg_advance_twice(rng, channels, n):
     from juicy_tpu_torch.ops.noise import lcg_advance
-    return lcg_advance(rng, 2 * channels * N)
+    return lcg_advance(rng, 2 * channels * n)
+
+
+def _assert_same_step(a, b):
+    """Two (out, state, metrics) results equal bit for bit."""
+    assert torch.equal(a[0], b[0])
+    for group in ("dsp", "analyzer"):
+        for key, v in a[1][group].items():
+            assert torch.equal(b[1][group][key], v), (group, key)
+    for key, v in a[2].items():
+        assert torch.equal(b[2][key], v), key
 
 
 @pytest.mark.cuda
@@ -164,11 +203,16 @@ def test_texture_run_corpus_always_on_card(cuda_device):
     assert float((last_k["score"] - last_n["score"]).abs().max()) <= 1e-4
 
 
-# params per case: a preset name, or a dict over the defaults
-_PUNCH_MOTION = [("punch", "Solar Snap"), ("punch", "Apocalypse Tap"),
-                 ("motion", None),
+# (name, params, batch, block length) per case: params are a preset name,
+# or a dict over the defaults; punch also at the ragged batches and an odd
+# block length
+_PUNCH_MOTION = [("punch", "Solar Snap", B, N), ("punch", "Apocalypse Tap", B, N),
+                 ("motion", None, B, N),
                  ("motion", dict(microvar=0.9, motiondepth=1.8,
-                                 repeatctrl=0.2, budget=0.9, mix=0.7))]
+                                 repeatctrl=0.2, budget=0.9, mix=0.7), B, N),
+                 ("punch", "Solar Snap", RAGGED[0], N),
+                 ("punch", "Solar Snap", RAGGED[1], N),
+                 ("punch", "Apocalypse Tap", RAGGED[0], N_ODD)]
 
 
 def _params(plug, preset):
@@ -180,21 +224,27 @@ def _params(plug, preset):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("channels", [1, 2])
-@pytest.mark.parametrize("name,preset", _PUNCH_MOTION)
-def test_punch_motion_stage_kernel_matches_plain(name, preset, channels,
-                                                 cuda_device):
+@pytest.mark.parametrize("name,preset,batch,n", _PUNCH_MOTION)
+def test_punch_motion_stage_kernel_matches_plain(name, preset, batch, n,
+                                                 channels, cuda_device):
     """Two streamed blocks: audio and every state leaf bit-equal (motion's
     rng, onset_cooldown and repetition included), metrics within 1e-5
-    (scores 1e-4); motion's onsets ran inside the blocks in most clips."""
-    plug = Plugin(name, SR, channels, N)
+    (scores 1e-4); motion's onsets ran inside the blocks in most clips. At
+    the largest batch the first block runs twice from one state and must
+    give the same bits."""
+    plug = Plugin(name, SR, channels, n)
     params = _params(plug, preset)
     step = getattr(sk, f"{name}_stage_step")
     plain = getattr(sk, f"{name}_stage_step_plain")
-    clips = _clips(20 + channels, channels, 2, cuda_device)
-    st_k = st_p = st0 = plug.init_state((B,), cuda_device)
+    clips = _clips(20 + channels, channels, 2, cuda_device, batch, n)
+    st_k = st_p = st0 = plug.init_state((batch,), cuda_device)
+    if batch == RAGGED[1]:
+        runs = [step(params, st0, clips[..., :n], SR) for _ in range(2)]
+        torch.cuda.synchronize()
+        _assert_same_step(*runs)
     before = step.launches
     for k in range(2):
-        blk = clips[..., k * N:(k + 1) * N]
+        blk = clips[..., k * n:(k + 1) * n]
         out_k, st_k, m_k = step(params, st_k, blk, SR)
         out_p, st_p, m_p = plain(params, st_p, blk, SR)
         torch.cuda.synchronize()

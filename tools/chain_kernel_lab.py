@@ -70,20 +70,25 @@ def _copy(src_dir, name):
     return dst
 
 
-def _load(src_dir, extra=()):
-    """Build `src_dir`'s chain.cu (with saturator_stage.cu for the error
+ENTRIES = ("juicy_chain_block", "juicy_cuda_error_string",
+           "juicy_chain_geometry", "juicy_punch_stage", "juicy_texture_stage",
+           "juicy_punch_geometry", "juicy_texture_geometry")
+
+
+def _load(src_dir, extra=(), sources=("chain.cu",)):
+    """Build `src_dir`'s `sources` (with saturator_stage.cu for the error
     strings) into one library and declare the entry points it has."""
     so = src_dir / "lib.so"
     cmd = [_build.find_nvcc(), *_build.COMPILE_FLAGS, "-shared", "-I",
-           str(src_dir), "-o", str(so), str(src_dir / "chain.cu"),
+           str(src_dir), "-o", str(so),
+           *(str(src_dir / f) for f in sources),
            str(src_dir / "saturator_stage.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed for {src_dir}:\n{proc.stderr[-4000:]}")
     lib = ctypes.CDLL(str(so))
     ref = _LOAD()
-    for fn in ("juicy_chain_block", "juicy_cuda_error_string",
-               "juicy_chain_geometry", *extra):
+    for fn in (*ENTRIES, *extra):
         if hasattr(lib, fn) and hasattr(ref, fn):
             getattr(lib, fn).argtypes = getattr(ref, fn).argtypes
             getattr(lib, fn).restype = getattr(ref, fn).restype
