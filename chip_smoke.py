@@ -15,9 +15,14 @@ on the card from a seed. Phases, each of which raises on failure:
 2.  build the CUDA kernels from ``juicy_tpu_torch/csrc`` (one nvcc per
     source, all started together);
 3.  the saturator stage kernel against its plain PyTorch version on the
-    card, two consecutive blocks at B = 4096, N = 512, preset "Amber Heat":
-    audio residual <= -120 dBFS, onset counts and cooldowns equal, scores
-    within 1e-4, other metrics within 1e-5; both times;
+    card, two consecutive blocks at B = 4096 and at a ragged B = 100 (its
+    last CTA partly past B), N = 512, preset "Amber Heat": audio, the tone
+    state and both lanes (onset counts and cooldowns included) bit-equal,
+    scores within 1e-4, other metrics within 1e-5; the kernel's geometry
+    (clips and warps per CTA, registers, shared memory, resident CTAs per
+    SM; no spills); its time per block alone, with the layout permutes,
+    the whole step's and the plain version's; and its time alone at
+    B = 4096 and 8192;
 3b. the texture stage kernel against its plain version, the same way, for
     each material 0..4 (gel, metal, wood, plastic, flesh) at the defaults,
     at B = 4096 and at a ragged B = 100 (its last CTA partly past B), with
@@ -29,8 +34,8 @@ on the card from a seed. Phases, each of which raises on failure:
 3c. the punch stage kernel against its plain version, two blocks at
     B = 4096 and at B = 100, N = 512, preset "Solar Snap", on an input with
     a burst every 100 ms at a per-clip offset (onsets inside the blocks):
-    audio and every state leaf bit-equal, onset counts and cooldowns
-    equal; its geometry and the same times as 3b;
+    audio, every state leaf and both lanes bit-equal; its geometry and the
+    same times as 3b;
 3d. the motion stage kernel the same way at its defaults, with ``rng`` and
     ``onset_cooldown`` among the state leaves and pass 1's LCG rolled in
     most clips;
@@ -128,13 +133,13 @@ CHAIN_BATCH = 256
 CHAIN_CORPUS_BATCH = 8192        # bench.py:798, the full_chain row
 #: batches at which 4e times the chain kernel alone
 CHAIN_TIMED_BATCHES = (4096, 8192, 16384)
-#: batches at which 3b and 3c time the texture and punch kernels alone
+#: batches at which 3-3d time the stage kernels alone
 STAGE_TIMED_BATCHES = (4096, 8192)
 #: clock cycles of the spin kernel that kernel_ms queues its launches behind
 #: (~10 ms, longer than the host takes to make 20 launches)
 SPIN_CYCLES = 20_000_000
-#: 3b's, 3c's and 3e's ragged batch: not a multiple of the warp-role
-#: kernels' 32 clips per CTA
+#: 3's to 3e's ragged batch: not a multiple of the warp-role kernels' 32
+#: clips per CTA
 RAGGED_BATCH = 100
 CHAIN_CHECK_BLOCKS = 8
 #: corpus paths whose never-path check runs at full depth (4, 4b, 4c); the
@@ -392,60 +397,84 @@ def phase_build():
             print(f"ptxas: {line.strip()}")
 
 
-def phase_kernel_vs_plain(device, plugin, params):
+def check_lanes(tag, raw_k, raw_p):
+    """Both lanes (pre fin, pre acc, post fin, post acc; the cooldowns are
+    fin row 4, the onset counts acc row 1) bit-equal."""
+    for j, (a, b) in enumerate(zip(raw_k, raw_p)):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{tag}: lane output {j} differs")
+
+
+def saturator_kernel_vs_plain(device, plugin, params, x, timed=True):
     """The saturator stage kernel against its plain version, two blocks,
-    state carried."""
+    state carried: audio, tone state and both lanes bit-equal; then, if
+    `timed`, the times per block."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
 
-    b, n = BATCH, BLOCK
-    x = make_batch(b, CHANNELS, 2 * n, device, seed=11)
+    b, n = x.shape[0], BLOCK
     st_k = st_p = plugin.init_state((b,), device)
+    scalars = sk._sat_scalars(params, plugin.sr)
     worst = 0.0
     for i in range(2):
         blk = x[..., i * n:(i + 1) * n]
-        # raw lane outputs: the onset counts are acc row 1, cooldowns fin row 4
-        scalars = sk._sat_scalars(params, plugin.sr)
+        tag = f"saturator B={b} block {i}"
         lane0 = sk.pack_lane(st_k["analyzer"], b)
         raw_k = sk._sat_lanes_cuda(blk, st_k["dsp"]["tone_state"], lane0, scalars)
         raw_p = sk._sat_lanes_plain(blk, st_k["dsp"]["tone_state"], lane0, scalars)
-        for j in (2, 4):
-            if not torch.equal(raw_k[j][4], raw_p[j][4]):
-                raise AssertionError(f"block {i}: lane cooldowns differ")
-            if not torch.equal(raw_k[j + 1][1], raw_p[j + 1][1]):
-                raise AssertionError(f"block {i}: onset counts differ")
+        check_lanes(tag, raw_k[2:], raw_p[2:])
         out_k, st_k, m_k = sk.saturator_stage_step(params, st_k, blk, plugin.sr)
         out_p, st_p, m_p = sk.saturator_stage_step_plain(params, st_p, blk,
                                                          plugin.sr)
         db = residual_dbfs(out_k, out_p)
         worst = max(worst, max_diff(out_k, out_p))
-        if db > -120.0:
-            raise AssertionError(f"block {i}: kernel vs plain {db:.1f} dBFS")
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"{tag}: kernel vs plain {db:.1f} dBFS")
+        if not torch.equal(st_k["dsp"]["tone_state"], st_p["dsp"]["tone_state"]):
+            raise AssertionError(f"{tag}: tone_state differs")
         if not torch.equal(st_k["analyzer"]["onset_cooldown"],
                            st_p["analyzer"]["onset_cooldown"]):
-            raise AssertionError(f"block {i}: onset_cooldown differs")
-        check_metrics(f"saturator block {i}", m_k, m_p)
-        print(f"kernel vs plain block {i}: audio {db:.1f} dBFS, tone "
-              f"{max_diff(st_k['dsp']['tone_state'], st_p['dsp']['tone_state']):.3g}, "
-              f"score {max_diff(m_k['score'], m_p['score']):.3g}")
+            raise AssertionError(f"{tag}: onset_cooldown differs")
+        check_metrics(tag, m_k, m_p)
+        print(f"{tag}: audio, tone state and both lanes bit-equal, lane "
+              f"onsets {int(raw_k[3][1].sum())} pre / {int(raw_k[5][1].sum())} "
+              f"post, score {max_diff(m_k['score'], m_p['score']):.3g}")
+    if not timed:
+        return {"max_abs_err": worst}
 
     blk = x[..., :n]
     st0 = plugin.init_state((b,), device)
-    scalars = sk._sat_scalars(params, plugin.sr)
     lane0 = sk.pack_lane(st0["analyzer"], b)
     tone0 = st0["dsp"]["tone_state"]
-    ms = cuda_ms(lambda: sk._sat_lanes_cuda(blk, tone0, lane0, scalars), 50)
+    bufs = sk.sat_cuda_buffers(blk, tone0, lane0)
+    ms = kernel_ms(lambda: sk.sat_cuda_launch(bufs, scalars), 20)
+    layout_ms = cuda_ms(lambda: sk._sat_lanes_cuda(blk, tone0, lane0, scalars),
+                        20)
     step_ms = cuda_ms(lambda: sk.saturator_stage_step(params, st0, blk,
-                                                      plugin.sr), 50)
+                                                      plugin.sr), 20)
     plain_ms = cuda_ms(lambda: sk._sat_lanes_plain(blk, tone0, lane0, scalars), 1)
-    plain_step_ms = cuda_ms(lambda: sk.saturator_stage_step_plain(
-        params, st0, blk, plugin.sr), 1)
     bound_ms, bound_by = saturator_bound(b, CHANNELS, n)
-    print(f"per block at B={b}, N={n}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms "
-          f"(lanes with layout); whole step: kernel route {step_ms:.4f} ms, "
-          f"plain route {plain_step_ms:.2f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by})")
+    print(f"saturator per block at B={b}, N={n}: kernel {ms:.4f} ms alone, "
+          f"{layout_ms:.4f} ms with layout, whole step {step_ms:.4f} ms, "
+          f"plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms ({bound_by})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "layout_ms": layout_ms, "step_ms": step_ms}
+
+
+def phase_kernel_vs_plain(device, plugin, params):
+    """3: the saturator at B = 4096 and at a ragged batch (its last CTA
+    partly past B), its geometry and its times alone."""
+    geo = stage_geometry(device, "saturator")
+    res = saturator_kernel_vs_plain(
+        device, plugin, params, make_batch(BATCH, CHANNELS, 2 * BLOCK, device,
+                                           seed=11))
+    err = saturator_kernel_vs_plain(
+        device, plugin, params, make_batch(RAGGED_BATCH, CHANNELS, 2 * BLOCK,
+                                           device, seed=12), timed=False)
+    res["max_abs_err"] = max(res["max_abs_err"], err["max_abs_err"])
+    res["geometry"] = geo
+    res["ms_by_batch"] = stage_ms_by_batch(device, "saturator")
+    return res
 
 
 def texture_kernel_vs_plain(device, mode, x, timed=True):
@@ -616,18 +645,14 @@ def model_kernel_vs_plain(device, name, params, x, timed=True):
         tag = f"{name} B={b} block {i}"
         db = residual_dbfs(out_k, out_p)
         worst = max(worst, max_diff(out_k, out_p))
-        if db > -120.0 or (name == "punch" and not torch.equal(out_k, out_p)):
+        if not torch.equal(out_k, out_p):
             raise AssertionError(f"{tag}: kernel vs plain {db:.1f} dBFS")
         if set(dsp_k) != set(dsp_p):
             raise AssertionError(f"{tag}: state keys differ")
         for key, v in dsp_p.items():
             if dsp_k[key].dtype != v.dtype or not torch.equal(dsp_k[key], v):
                 raise AssertionError(f"{tag}: state {key} differs")
-        for j in (0, 2):       # fin row 4 = cooldown, acc row 1 = onsets
-            if not torch.equal(raw_k[j][4], raw_p[j][4]):
-                raise AssertionError(f"{tag}: lane cooldowns differ")
-            if not torch.equal(raw_k[j + 1][1], raw_p[j + 1][1]):
-                raise AssertionError(f"{tag}: onset counts differ")
+        check_lanes(tag, raw_k, raw_p)
         an_k, m_k, _ = sk.metrics_from_lanes(*raw_k, st_k["analyzer"], n, SR)
         an_p, m_p, _ = sk.metrics_from_lanes(*raw_p, st_p["analyzer"], n, SR)
         check_metrics(tag, m_k, m_p)
@@ -638,7 +663,7 @@ def model_kernel_vs_plain(device, name, params, x, timed=True):
             rolled = float((dsp_k["rng"] != st0["dsp"]["rng"]).float().mean())
             extra = (f", rng rolled in {rolled:.1%} of clips, cooldown "
                      f"running in {float((dsp_k['onset_cooldown'] > 0).float().mean()):.1%}")
-        print(f"{tag}: audio {db:.1f} dBFS, state bit-equal, lane onsets "
+        print(f"{tag}: audio, state and both lanes bit-equal, lane onsets "
               f"{int(raw_k[1][1].sum())} pre / {int(raw_k[3][1].sum())} post, "
               f"score {max_diff(m_k['score'], m_p['score']):.3g}{extra}")
     if name == "motion" and rolled < 0.9:
@@ -677,19 +702,18 @@ def phase_punch_motion_kernels(device):
                     period=2 * BLOCK)
     ragged = make_clicks(RAGGED_BATCH, CHANNELS, 2 * BLOCK, device, seed=21,
                          period=2 * BLOCK)
-    punch = Plugin("punch", SR, CHANNELS, BLOCK)
-    motion = Plugin("motion", SR, CHANNELS, BLOCK)
-    geo = stage_geometry(device, "punch")
-    res = {"punch": model_kernel_vs_plain(device, "punch",
-                                          punch.preset(PUNCH_PRESET), x),
-           "motion": model_kernel_vs_plain(device, "motion",
-                                           motion.default_params(), x)}
-    err = model_kernel_vs_plain(device, "punch", punch.preset(PUNCH_PRESET),
-                                ragged, timed=False)
-    res["punch"]["max_abs_err"] = max(res["punch"]["max_abs_err"],
-                                      err["max_abs_err"])
-    res["punch"]["geometry"] = geo
-    res["punch"]["ms_by_batch"] = stage_ms_by_batch(device, "punch")
+    res = {}
+    for name in ("punch", "motion"):
+        plugin = Plugin(name, SR, CHANNELS, BLOCK)
+        params = (plugin.preset(PUNCH_PRESET) if name == "punch"
+                  else plugin.default_params())
+        geo = stage_geometry(device, name)
+        res[name] = model_kernel_vs_plain(device, name, params, x)
+        err = model_kernel_vs_plain(device, name, params, ragged, timed=False)
+        res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
+                                       err["max_abs_err"])
+        res[name]["geometry"] = geo
+        res[name]["ms_by_batch"] = stage_ms_by_batch(device, name)
     return res
 
 
@@ -826,39 +850,49 @@ def chain_geometry(device, mode):
 
 
 def stage_geometry(device, name, mode=None):
-    """The punch or texture kernel's geometry, stereo, at N = BLOCK,
-    printed."""
+    """A warp-role stage kernel's geometry, stereo, at N = BLOCK, printed."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
 
-    if name == "punch":
-        return show_geometry("punch kernel", sk.punch_geometry(BLOCK, 2, device),
-                             "punch_stage_kernelILi2E")
-    return show_geometry(f"texture kernel ({MATERIALS[mode]})",
-                         sk.texture_geometry(mode, BLOCK, 2, device),
-                         f"texture_stage_kernelILi2ELi{mode}E")
+    if name == "texture":
+        return show_geometry(f"texture kernel ({MATERIALS[mode]})",
+                             sk.texture_geometry(mode, BLOCK, 2, device),
+                             f"texture_stage_kernelILi2ELi{mode}E")
+    geo = getattr(sk, f"{name}_geometry")(BLOCK, 2, device)
+    return show_geometry(f"{name} kernel", geo, f"{name}_stage_kernelILi2E")
 
 
 def stage_alone_ms(device, name, b, mode=None):
-    """The punch or texture kernel's ms per block alone at batch `b` (N =
-    BLOCK, stereo) on prepared buffers, from a fresh state."""
+    """A stage kernel's ms per block alone at batch `b` (N = BLOCK, stereo)
+    on prepared buffers, from a fresh state: punch ("Solar Snap") and
+    motion on the burst input, the saturator ("Amber Heat") and texture
+    `mode` on bench.py's signal."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
     from juicy_tpu_torch.runtime.plugin import Plugin
 
-    if name == "punch":
-        plugin = Plugin("punch", SR, CHANNELS, BLOCK)
-        params = plugin.preset(PUNCH_PRESET)
-        x = make_clicks(b, CHANNELS, BLOCK, device, seed=41)
+    if name == "texture":
+        plugin = Plugin("texture", SR, CHANNELS,
+                        BLOCK).with_static(material=mode)
+        params = plugin.full_params(plugin.default_params())
+        x = make_batch(b, CHANNELS, BLOCK, device, seed=41)
         st = plugin.init_state((b,), device)
-        bufs = sk.punch_cuda_buffers(x, st["dsp"],
-                                     sk.pack_lane(st["analyzer"], b))
-        return kernel_ms(lambda: sk.punch_cuda_launch(bufs, params, SR), 20)
-    plugin = Plugin("texture", SR, CHANNELS, BLOCK).with_static(material=mode)
-    params = plugin.full_params(plugin.default_params())
-    x = make_batch(b, CHANNELS, BLOCK, device, seed=41)
+        bufs = sk.tex_cuda_buffers(x, sk.texture_kernel_state(st["dsp"], mode),
+                                   sk.pack_lane(st["analyzer"], b), mode)
+        return kernel_ms(lambda: sk.tex_cuda_launch(bufs, params, SR, mode), 20)
+    plugin = Plugin(name, SR, CHANNELS, BLOCK)
+    params = {"punch": lambda: plugin.preset(PUNCH_PRESET),
+              "saturator": lambda: plugin.preset(PRESET),
+              "motion": plugin.default_params}[name]()
+    x = (make_batch(b, CHANNELS, BLOCK, device, seed=41) if name == "saturator"
+         else make_clicks(b, CHANNELS, BLOCK, device, seed=41))
     st = plugin.init_state((b,), device)
-    bufs = sk.tex_cuda_buffers(x, sk.texture_kernel_state(st["dsp"], mode),
-                               sk.pack_lane(st["analyzer"], b), mode)
-    return kernel_ms(lambda: sk.tex_cuda_launch(bufs, params, SR, mode), 20)
+    lane0 = sk.pack_lane(st["analyzer"], b)
+    if name == "saturator":
+        bufs = sk.sat_cuda_buffers(x, st["dsp"]["tone_state"], lane0)
+        scalars = sk._sat_scalars(params, SR)
+        return kernel_ms(lambda: sk.sat_cuda_launch(bufs, scalars), 20)
+    bufs = getattr(sk, f"{name}_cuda_buffers")(x, st["dsp"], lane0)
+    launch = getattr(sk, f"{name}_cuda_launch")
+    return kernel_ms(lambda: launch(bufs, params, SR), 20)
 
 
 def stage_ms_by_batch(device, name, mode=None):

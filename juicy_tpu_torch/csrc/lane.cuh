@@ -8,6 +8,8 @@
 // float here, as in the TPU kernel; the host casts it to int32.
 #pragma once
 
+#include "precise.cuh"
+
 namespace juicy {
 
 struct LaneConsts {
@@ -75,14 +77,14 @@ __device__ __forceinline__ void lane_step(Lane& s, float l, float r,
   s.s_env = (1.0f - cs) * x + cs * s.s_env;
   const float cl = x > s.l_env ? k.atk_l : k.rel_l;
   s.l_env = (1.0f - cl) * x + cl * s.l_env;
-  const float transient = fmaxf(0.0f, s.s_env - s.l_env);
+  const float transient = max0(s.s_env - s.l_env);
   s.t_acc = s.t_acc + transient;
-  s.cooldown = fmaxf(s.cooldown - 1.0f, 0.0f);
+  s.cooldown = max0(s.cooldown - 1.0f);
   const bool onset = (transient > 0x1.70a3d8p-5f) && (s.cooldown <= 0.0f);
   s.count = s.count + (onset ? 1.0f : 0.0f);
   s.cooldown = onset ? k.cd_samples : s.cooldown;
   s.rms_acc = s.rms_acc + mono * mono;
-  s.peak = fmaxf(s.peak, x);
+  s.peak = max_nan(s.peak, x);
   s.lo = s.lo + k.low_c * (mono - s.lo);
   s.hi = s.hi + k.high_c * (mono - s.hi);
   const float high_v = mono - s.hi;
@@ -110,13 +112,13 @@ __device__ __forceinline__ float lane_step_envelopes(Lane& s, float l,
   s.s_env = (1.0f - cs) * x + cs * s.s_env;
   const float cl = x > s.l_env ? k.atk_l : k.rel_l;
   s.l_env = (1.0f - cl) * x + cl * s.l_env;
-  return fmaxf(0.0f, s.s_env - s.l_env);
+  return max0(s.s_env - s.l_env);
 }
 
 __device__ __forceinline__ void lane_step_onsets(Lane& s, float transient,
                                                  const LaneConsts& k) {
   s.t_acc = s.t_acc + transient;
-  s.cooldown = fmaxf(s.cooldown - 1.0f, 0.0f);
+  s.cooldown = max0(s.cooldown - 1.0f);
   const bool onset = (transient > 0x1.70a3d8p-5f) && (s.cooldown <= 0.0f);
   s.count = s.count + (onset ? 1.0f : 0.0f);
   s.cooldown = onset ? k.cd_samples : s.cooldown;
@@ -131,7 +133,7 @@ __device__ __forceinline__ void lane_step_energy(Lane& s, float l, float r,
   s.lo_acc = s.lo_acc + s.lo * s.lo;
   s.hi_acc = s.hi_acc + high_v * high_v;
   s.rms_acc = s.rms_acc + mono * mono;
-  s.peak = fmaxf(s.peak, fabsf(mono));
+  s.peak = max_nan(s.peak, fabsf(mono));
   const float side = 0.5f * (l - r);
   s.side_acc = s.side_acc + side * side;
   s.corr_acc = s.corr_acc + l * r;

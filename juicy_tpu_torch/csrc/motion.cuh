@@ -97,11 +97,50 @@ __device__ __forceinline__ void motion_slew(MotionShared& s,
   s.phase = s.phase > kTwoPi ? s.phase - kFourPi : s.phase;
 }
 
-// One pass-2 sample of one channel up to the budget limiter (cpp:101-131):
-// the slew, sin32 LFO at phase + ch_offset, the modulated one-pole LP,
-// transient boost and tail feedback; returns the wet signal. `narrow`
-// selects the cutoff coefficient's narrow exp (the host decides).
-// s.budget_env is neither read nor written.
+// Pass 2 of one channel-sample up to the budget limiter (cpp:101-131),
+// after motion_slew, in two parts that motion_stage.cu runs on different
+// warps. motion_p2_mod is the part no audio moves: the sin32 LFO at
+// phase + ch_offset, the cutoff and its one-pole coefficient (`narrow`
+// selects its narrow exp; the host decides), the tone factor, the
+// transient boost and the tail feedback.
+struct MotionMod {
+  float lp_c, tone_f, boost, fb;
+};
+
+__device__ __forceinline__ MotionMod motion_p2_mod(const MotionShared& s,
+                                                   float ch_offset,
+                                                   bool narrow,
+                                                   const MotionConsts& k) {
+  MotionMod m;
+  const float lfo = sin32(s.phase + ch_offset);
+  const float cutoff = clamp_to(
+      900.0f + s.vt * 1100.0f * k.cut_depth + lfo * k.lfo_depth, 120.0f,
+      4200.0f);
+  m.lp_c = onepole_coeff32(cutoff, k.sr, narrow);
+  m.boost =
+      1.0f + s.vtr * 1.2f * k.boost_depth + k.lfo_mv * lfo * k.lfo_depth2;
+  m.tone_f = 1.0f + s.vt * 0.65f * k.tone_depth;
+  m.fb = clamp_to(k.tail_feedback + s.vtl * 0.06f, 0.0f, 0.93f);
+  return m;
+}
+
+// The part that carries audio: the modulated one-pole LP, the transient
+// and the tail feedback of one channel; returns the wet signal.
+__device__ __forceinline__ float motion_p2_carry(float d, MotionChan& c,
+                                                 const MotionMod& m,
+                                                 float scale, float recovery,
+                                                 const MotionConsts& k) {
+  c.lp = c.lp + m.lp_c * (d - c.lp);
+  const float hp = d - c.lp;
+  const float transient = d - c.prev;
+  c.prev = d;
+  const float tone_shift = c.lp * m.tone_f + hp * m.boost +
+                           transient * k.trans_mv * k.trans_depth;
+  c.tail = tone_shift + c.tail * m.fb;
+  return tone_shift * scale * recovery + k.tail_mix * c.tail;
+}
+
+// The slew, then both parts. s.budget_env is neither read nor written.
 __device__ __forceinline__ float motion_p2_wet(float d, MotionShared& s,
                                                MotionChan& c,
                                                const MotionP1& p1,
@@ -109,38 +148,35 @@ __device__ __forceinline__ float motion_p2_wet(float d, MotionShared& s,
                                                float ch_offset, bool narrow,
                                                const MotionConsts& k) {
   motion_slew(s, p1, k);
-  const float lfo = sin32(s.phase + ch_offset);
-  const float cutoff = clamp_to(
-      900.0f + s.vt * 1100.0f * k.cut_depth + lfo * k.lfo_depth, 120.0f,
-      4200.0f);
-  const float lp_c = onepole_coeff32(cutoff, k.sr, narrow);
-  c.lp = c.lp + lp_c * (d - c.lp);
-  const float hp = d - c.lp;
-  const float transient = d - c.prev;
-  c.prev = d;
-
-  const float transient_boost =
-      1.0f + s.vtr * 1.2f * k.boost_depth + k.lfo_mv * lfo * k.lfo_depth2;
-  const float tone_shift = c.lp * (1.0f + s.vt * 0.65f * k.tone_depth) +
-                           hp * transient_boost +
-                           transient * k.trans_mv * k.trans_depth;
-  c.tail = tone_shift +
-           c.tail * clamp_to(k.tail_feedback + s.vtl * 0.06f, 0.0f, 0.93f);
-  return tone_shift * scale * recovery + k.tail_mix * c.tail;
+  return motion_p2_carry(d, c, motion_p2_mod(s, ch_offset, narrow, k), scale,
+                         recovery, k);
 }
 
 // The budget limiter, mix and output gain of one pass-2 sample
-// (cpp:132-142): the only part that carries state (`budget_env`) from
-// channel 0 into channel 1.
-__device__ __forceinline__ float motion_p2_limit(float d, float wet,
-                                                 float& budget_env,
-                                                 const MotionConsts& k) {
+// (cpp:132-142), the only part that carries state (`budget_env`) from
+// channel 0 into channel 1, in two parts that motion_stage.cu runs on
+// different warps: the envelope, then the limiter's gain (a division that
+// feeds no state), the mix and the output gain.
+__device__ __forceinline__ void motion_budget(float wet, float& budget_env,
+                                              const MotionConsts& k) {
   budget_env = k.budget_coeff * budget_env + k.one_budget * fabsf(wet);
+}
+
+__device__ __forceinline__ float motion_limit_out(float d, float wet,
+                                                  float budget_env,
+                                                  const MotionConsts& k) {
   const float limiter_gain = budget_env > k.budget_target
                                  ? k.budget_target / (budget_env + 1.0e-5f)
                                  : 1.0f;
   wet = wet * limiter_gain;
   return (d + k.mix * (wet * k.wet_boost - d)) * k.out_gain;
+}
+
+__device__ __forceinline__ float motion_p2_limit(float d, float wet,
+                                                 float& budget_env,
+                                                 const MotionConsts& k) {
+  motion_budget(wet, budget_env, k);
+  return motion_limit_out(d, wet, budget_env, k);
 }
 
 // One pass-2 sample of one channel (cpp:101-142).

@@ -109,9 +109,37 @@ __device__ __forceinline__ float sin32(float x) {
   return x * acc;
 }
 
-// 2^x for |x| <= 125 (clipped outside).
+// The clamps and extrema of the plain version keep a NaN (torch.clamp,
+// torch.maximum and torch.minimum, as jnp.clip and the C++ jlimit do), where
+// fminf and fmaxf would map it to the other operand. PTX's max.NaN and
+// min.NaN give NaN when either operand is NaN, in one instruction, as
+// cheap as max and min; for any other operands they are max and min, the
+// operations fmaxf and fminf compile to. The NaN they give is the
+// canonical one, the NaN every arithmetic result on the card already is.
+
+// torch.maximum(a, b) and torch.minimum(a, b)
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+// torch.clamp(x, lo, hi)
+__device__ __forceinline__ float clamp_to(float x, float lo, float hi) {
+  return min_nan(max_nan(x, lo), hi);
+}
+
+// torch.clamp(x, min=0)
+__device__ __forceinline__ float max0(float x) { return max_nan(x, 0.0f); }
+
+// 2^x for |x| <= 125 (clipped outside; a NaN stays NaN).
 __device__ __forceinline__ float exp2_32(float x) {
-  x = fminf(fmaxf(x, -125.0f), 125.0f);
+  x = clamp_to(x, -125.0f, 125.0f);
   const float k = rintf(x);               // ties to even, as np.rint
   const float r = x - k;
   const float two_k = __int_as_float((static_cast<int>(k) + 127) << 23);
@@ -163,10 +191,6 @@ __device__ __forceinline__ float onepole_coeff32(float f, float sr,
                                                  bool narrow) {
   const float arg = (-0x1.921fb6p+2f * f) / sr;
   return 1.0f - (narrow ? exp32_narrow(arg) : exp32(arg));
-}
-
-__device__ __forceinline__ float clamp_to(float x, float lo, float hi) {
-  return fminf(fmaxf(x, lo), hi);
 }
 
 // One step of the reference's 32-bit LCG, with native u32 wrap.

@@ -31,10 +31,10 @@ __device__ __forceinline__ float punch_sample(float d, float& fast,
   const float a = fabsf(d);
   fast = k.one_fast * a + k.fast_c * fast;
   slow = k.one_slow * a + k.slow_c * slow;
-  const float transient = fmaxf(fast - slow, 0.0f);
+  const float transient = max0(fast - slow);
   const float punch_gain = 1.0f + k.punch_k * pow32(transient, k.curve_exp);
   const float sustain_gain =
-      1.0f + k.sustain_k * fmaxf(slow - transient * 0.6f, 0.0f);
+      1.0f + k.sustain_k * max0(slow - transient * 0.6f);
   float wet = d * punch_gain * sustain_gain;
   const float soft = tanh32(wet * k.drive) / k.tanh_drive;
   const float hard = clamp_to(wet * k.hard_k, -0.95f, 0.95f);
@@ -55,10 +55,10 @@ __device__ __forceinline__ void punch_follow(float d, float& fast,
 
 __device__ __forceinline__ float punch_shape(float d, float fast, float slow,
                                              const PunchConsts& k) {
-  const float transient = fmaxf(fast - slow, 0.0f);
+  const float transient = max0(fast - slow);
   const float punch_gain = 1.0f + k.punch_k * pow32(transient, k.curve_exp);
   const float sustain_gain =
-      1.0f + k.sustain_k * fmaxf(slow - transient * 0.6f, 0.0f);
+      1.0f + k.sustain_k * max0(slow - transient * 0.6f);
   float wet = d * punch_gain * sustain_gain;
   const float soft = tanh32(wet * k.drive) / k.tanh_drive;
   const float hard = clamp_to(wet * k.hard_k, -0.95f, 0.95f);

@@ -18,15 +18,26 @@ struct SatConsts {
   float in_gain, asym, tone_c, out_gain, mix;
 };
 
-// drive -> asymmetric skew -> tanh -> tone one-pole -> output gain -> mix
-__device__ __forceinline__ float sat_sample(float d, float& tone,
-                                            const SatConsts& p) {
+// drive -> asymmetric skew -> tanh (sat_soft, which reads no state) ->
+// tone one-pole -> output gain -> mix (sat_tone_mix, which carries the
+// tone). saturator_stage.cu runs the two parts on different warps.
+__device__ __forceinline__ float sat_soft(float d, const SatConsts& p) {
   const float driven = d * p.in_gain;
   const float skewed = driven + p.asym * driven * driven;
-  const float soft = tanh32(skewed);
+  return tanh32(skewed);
+}
+
+__device__ __forceinline__ float sat_tone_mix(float d, float soft,
+                                              float& tone,
+                                              const SatConsts& p) {
   tone = tone + p.tone_c * (soft - tone);
   const float wet = tone * p.out_gain;
   return d + p.mix * (wet - d);
+}
+
+__device__ __forceinline__ float sat_sample(float d, float& tone,
+                                            const SatConsts& p) {
+  return sat_tone_mix(d, sat_soft(d, p), tone, p);
 }
 
 }  // namespace juicy

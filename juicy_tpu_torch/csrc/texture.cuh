@@ -61,7 +61,7 @@ __device__ __forceinline__ TexDrive tex_front(float d, TexChan& s,
   const float env_c = adry > s.env ? k.env_atk : k.env_rel;
   s.env = env_c * s.env + (1.0f - env_c) * adry;
   TexDrive v;
-  v.impact = clamp_to(fmaxf(adry - s.env, 0.0f) * 10.0f, 0.0f, 1.0f);
+  v.impact = clamp_to(max0(adry - s.env) * 10.0f, 0.0f, 1.0f);
   v.body = clamp_to(s.env * 3.2f, 0.0f, 1.0f);
   v.trail = clamp_to(1.0f - v.impact, 0.0f, 1.0f) * k.tail_shape;
   s.lp = s.lp + k.split_low * (driven - s.lp);
@@ -99,7 +99,7 @@ __device__ __forceinline__ float tex_back(float d, float shaped, float w,
   s.dc_in = pre_dc;
   s.dc_out = dc;
   const float peak = fabsf(dc);
-  s.pg = peak > 0.88f ? fminf(s.pg, (0.88f / peak) * 0.98f)
+  s.pg = peak > 0.88f ? min_nan(s.pg, (0.88f / peak) * 0.98f)
                       : s.pg + (1.0f - s.pg) * 0.0028f;
   const float o = dc * clamp_to(s.pg, 0.2f, 1.0f);
   return clamp_to(o, -0.98f, 0.98f);
@@ -312,7 +312,7 @@ __device__ __forceinline__ float tex_back_limit(float pre_dc, TexChan& s,
   s.dc_out = dc;
   const float peak = fabsf(dc);
   if (peak > 0.88f)
-    s.pg = fminf(s.pg, (0.88f / peak) * 0.98f);
+    s.pg = min_nan(s.pg, (0.88f / peak) * 0.98f);
   else
     s.pg = s.pg + (1.0f - s.pg) * 0.0028f;
   const float o = dc * clamp_to(s.pg, 0.2f, 1.0f);

@@ -133,6 +133,9 @@ def load_library() -> ctypes.CDLL:
     lib.juicy_chain_block.restype = i32
     lib.juicy_chain_geometry.argtypes = [i32, i32, ptr]
     lib.juicy_chain_geometry.restype = i32
+    for name in ("juicy_saturator_geometry", "juicy_motion_geometry"):
+        getattr(lib, name).argtypes = [i32, i32, ptr]
+        getattr(lib, name).restype = i32
     lib.juicy_punch_geometry.argtypes = [i32, i32, ptr]
     lib.juicy_punch_geometry.restype = i32
     lib.juicy_texture_geometry.argtypes = [i32, i32, i32, ptr]

@@ -12,7 +12,7 @@ The TPU kernel computes what the saturator stage kernel computes
 and the drive/skew/``tanh32``/tone/mix body in one sample loop, then the
 post lane over the output. So on the card it is a launch of the same
 hand-written kernel, ``csrc/saturator_stage.cu`` (``stage_kernels.
-sat_launch``), through the stage step's host code (``_sat_stage``), counted
+sat_lanes_cuda``), through the stage step's host code (``_sat_stage``), counted
 here in ``saturator_step_fused.launches``; the plain version is the stage
 kernel's (``_sat_lanes_plain``). Any B >= 1 runs: the kernel masks the
 ragged edge, so JAX's 1024-clip rule is not ported.
@@ -24,9 +24,7 @@ from juicy_tpu_torch.kernels import stage_kernels as sk
 
 
 def _lanes_cuda(x, tone0, lane0, scalars):
-    res = sk.sat_launch(x, tone0, lane0, scalars)
-    saturator_step_fused.launches += 1
-    return res
+    return sk.sat_lanes_cuda(saturator_step_fused, x, tone0, lane0, scalars)
 
 
 def _step(lanes_fn, plugin, params, states, blocks):

@@ -184,43 +184,56 @@ def _sat_lanes_plain(x, tone0, lane0, scalars):
     return out, tone, pre_fin, pre_acc, post_fin, post_acc
 
 
-def _sat_lanes_cuda(x, tone0, lane0, scalars):
-    """Launch ``juicy_saturator_stage`` (csrc/saturator_stage.cu) on the
-    current stream of `x`'s device, counted as a launch of
-    saturator_stage_step. Same contract as _sat_lanes_plain."""
-    res = sat_launch(x, tone0, lane0, scalars)
-    saturator_stage_step.launches += 1
-    return res
+def sat_cuda_buffers(x, tone0, lane0):
+    """The saturator kernel's inputs in its layout and its freshly allocated
+    outputs, as a dict of tensors (the layout permutes of one block)."""
+    bufs = dict(x=x.permute(2, 1, 0).contiguous(),                # [N, C, B]
+                tone_in=tone0.t().contiguous(),                   # [C, B]
+                lane_in=lane0.contiguous())
+    bufs.update(out=torch.empty_like(bufs["x"]),
+                tone_out=torch.empty_like(bufs["tone_in"]),
+                **_lane_outputs(x.shape[0], x.device))
+    return bufs
 
 
-def sat_launch(x, tone0, lane0, scalars):
-    """One launch of ``juicy_saturator_stage``, uncounted: its callers
-    count it (saturator_stage_step, and saturator_step_fused in
+_SAT_ARGS = ("x", "tone_in", "lane_in", "out", "tone_out", "pre_fin",
+             "pre_acc", "post_fin", "post_acc")
+
+
+def sat_cuda_launch(bufs, scalars):
+    """One launch of ``juicy_saturator_stage`` (csrc/saturator_stage.cu) on
+    prepared buffers, on the current stream of their device, uncounted: its
+    callers count it (saturator_stage_step, and saturator_step_fused in
     kernels/saturator_kernel.py). Raises on a refused launch."""
     from juicy_tpu_torch.kernels import _build
 
     lib = _build.load_library()
-    b, c, n = x.shape
-    xt = x.permute(2, 1, 0).contiguous()            # [N, C, B] time-major
-    tone_t = tone0.t().contiguous()                 # [C, B]
-    lane0 = lane0.contiguous()
-    out_t = torch.empty_like(xt)
-    tone_out = torch.empty_like(tone_t)
-    fins = [torch.empty((5, b), dtype=F32, device=x.device) for _ in range(2)]
-    accs = [torch.empty((10, b), dtype=F32, device=x.device) for _ in range(2)]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    n, c, b = bufs["x"].shape
+    device = bufs["x"].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.juicy_saturator_stage(
-            xt.data_ptr(), tone_t.data_ptr(), lane0.data_ptr(),
-            out_t.data_ptr(), tone_out.data_ptr(),
-            fins[0].data_ptr(), accs[0].data_ptr(),
-            fins[1].data_ptr(), accs[1].data_ptr(),
-            b, c, n, *scalars, stream)
+            *(bufs[k].data_ptr() for k in _SAT_ARGS), b, c, n, *scalars,
+            stream)
     if err != 0:
         raise RuntimeError(f"juicy_saturator_stage launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
-    return (out_t.permute(2, 1, 0), tone_out.t(), fins[0], accs[0],
-            fins[1], accs[1])
+
+
+def sat_lanes_cuda(step, x, tone0, lane0, scalars):
+    """The kernel route: layout, one launch counted in ``step.launches``,
+    unpack. Same contract as _sat_lanes_plain."""
+    bufs = sat_cuda_buffers(x, tone0, lane0)
+    sat_cuda_launch(bufs, scalars)
+    step.launches += 1
+    return (bufs["out"].permute(2, 1, 0), bufs["tone_out"].t(),
+            bufs["pre_fin"], bufs["pre_acc"], bufs["post_fin"],
+            bufs["post_acc"])
+
+
+def _sat_lanes_cuda(x, tone0, lane0, scalars):
+    """The kernel route of saturator_stage_step."""
+    return sat_lanes_cuda(saturator_stage_step, x, tone0, lane0, scalars)
 
 
 def _sat_stage(lanes_fn, params, state, block, sr: float):
@@ -866,6 +879,18 @@ def read_geometry(entry: str, *args: int, device=None) -> Dict[str, int]:
         raise RuntimeError(f"{entry} failed: CUDA error {err} "
                            f"({_build.error_string(lib, err)})")
     return dict(zip(GEOMETRY_KEYS, g))
+
+
+def saturator_geometry(n: int, channels: int = 2,
+                       device=None) -> Dict[str, int]:
+    """The saturator stage kernel's geometry for block size `n`."""
+    return read_geometry("juicy_saturator_geometry", channels, n,
+                         device=device)
+
+
+def motion_geometry(n: int, channels: int = 2, device=None) -> Dict[str, int]:
+    """The motion stage kernel's geometry for block size `n`."""
+    return read_geometry("juicy_motion_geometry", channels, n, device=device)
 
 
 def punch_geometry(n: int, channels: int = 2, device=None) -> Dict[str, int]:

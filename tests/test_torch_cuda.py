@@ -9,12 +9,17 @@ JAX; on a machine without it, run it as
 The batch is ragged (not a multiple of the kernels' thread blocks) and mono
 and stereo both run, which chip_smoke.py does not cover; texture runs all
 five materials, punch and motion two presets or settings each, and the
-seven-stage Chain runs on the card against the CPU. The texture and punch
-kernels also run at batches that are not a multiple of their 32 clips per
-CTA (45 and 4099) and at a block length that is not a multiple of their
-chunk; at 4099 each first block runs twice and must give the same bits;
-plastic runs at 3 kHz, where its waveguide's second tap falls inside the
-chunk being written. The chain kernel runs
+seven-stage Chain runs on the card against the CPU. The four stage kernels
+also run at batches that are not a multiple of their 32 clips per CTA (45
+and 4099) and at a block length that is not a multiple of their chunk
+(the saturator and motion also at one shorter than a chunk); at 4099 each
+first block runs twice and must give the same bits; the saturator's,
+punch's and motion's audio, state and both lanes are held bit-equal to
+the plain version's; plastic runs at 3 kHz, where its waveguide's second
+tap falls inside the chunk being written. A block with one NaN sample
+runs through the saturator and motion kernels, and plastic at 2 kHz
+(whose output turns NaN) through the texture kernel: NaN where the plain
+version has NaN, every other value equal. The chain kernel runs
 three blocks per texture material against its plain version (bit-equal
 audio and state) at batches that are not a multiple of its 32 clips per
 CTA (300, 45 and 4099), two runs of one input that must be bit-identical,
@@ -34,6 +39,7 @@ import pytest
 import torch
 
 from juicy_tpu_torch.kernels import stage_kernels as sk
+from juicy_tpu_torch.models import texture as _tex
 from juicy_tpu_torch.parallel.corpus import run_corpus
 from juicy_tpu_torch.runtime.plugin import Plugin
 
@@ -44,6 +50,8 @@ B, N = 300, 256
 RAGGED = (45, 4099)
 #: a block length that is not a multiple of the stage kernels' chunk
 N_ODD = 203
+#: a block length shorter than one chunk
+N_SHORT = 5
 
 
 @pytest.fixture
@@ -63,19 +71,71 @@ def _clips(seed, channels, blocks, device, batch=B, n=N):
     return torch.from_numpy(np.clip(x, -0.99, 0.99).astype(np.float32)).to(device)
 
 
+#: (batch, block length) of the saturator and motion cases: the default, the
+#: ragged batches (the last CTA part-filled), an odd block length and one
+#: shorter than a chunk
+_STAGE_SHAPES = [(B, N), (RAGGED[0], N), (RAGGED[1], N), (RAGGED[0], N_ODD),
+                 (RAGGED[0], N_SHORT)]
+
+
+def _raw_lanes(name, route, params, st, blk, sr=SR):
+    """One block through the stage kernel's raw route ("cuda" or "plain")
+    from state `st`: [audio, every state leaf by name, pre fin, pre acc,
+    post fin, post acc]."""
+    lane0 = sk.pack_lane(st["analyzer"], blk.shape[0])
+    if name == "saturator":
+        fn = getattr(sk, f"_sat_lanes_{route}")
+        out, tone, *lanes = fn(blk, st["dsp"]["tone_state"], lane0,
+                               sk._sat_scalars(params, sr))
+        leaves = [tone]
+    elif name == "texture":
+        fn = getattr(sk, f"_tex_lanes_{route}")
+        dsp = dict(st["dsp"])
+        dsp["waveguide"] = dsp["waveguide"].clone()  # both update it in place
+        out, new, *lanes = fn(blk, dsp, lane0, params, sr,
+                              _tex.require_static(params))
+        leaves = [new[k] for k in sorted(new)]
+    else:
+        fn = getattr(sk, f"_{name}_lanes_{route}")
+        out, new, *lanes = fn(blk, st["dsp"], lane0, params, sr)
+        leaves = [new[k] for k in sorted(new)]
+    return [out, *leaves, *lanes]
+
+
+def _assert_raw_equal(name, params, st, blk, sr=SR):
+    """Audio, every state leaf and both lanes of the kernel route equal the
+    plain version's bit for bit."""
+    got = _raw_lanes(name, "cuda", params, st, blk, sr)
+    want = _raw_lanes(name, "plain", params, st, blk, sr)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype and torch.equal(a, b), i
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("channels", [1, 2])
-def test_saturator_stage_kernel_matches_plain(channels, cuda_device):
-    """Two streamed blocks: audio and tone state bit-equal (-fmad=false and
-    the same op order), onset cooldowns equal, metrics within 1e-5 (scores
-    1e-4)."""
-    plug = Plugin("saturator", SR, channels, N)
+@pytest.mark.parametrize("batch,n", _STAGE_SHAPES)
+def test_saturator_stage_kernel_matches_plain(batch, n, channels,
+                                              cuda_device):
+    """Two streamed blocks: audio, tone state and both lanes bit-equal
+    (-fmad=false and the same op order), onset cooldowns equal, metrics
+    within 1e-5 (scores 1e-4). At the largest batch the first block runs
+    twice from one state and must give the same bits."""
+    plug = Plugin("saturator", SR, channels, n)
     params = plug.preset("Grain Reactor")
-    clips = _clips(channels, channels, 2, cuda_device)
-    st_k = st_p = plug.init_state((B,), cuda_device)
+    clips = _clips(channels, channels, 2, cuda_device, batch, n)
+    st_k = st_p = st0 = plug.init_state((batch,), cuda_device)
+    if batch == RAGGED[1]:
+        runs = [sk.saturator_stage_step(params, st0, clips[..., :n], SR)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        _assert_same_step(*runs)
     before = sk.saturator_stage_step.launches
+    starts = []
     for k in range(2):
-        blk = clips[..., k * N:(k + 1) * N]
+        blk = clips[..., k * n:(k + 1) * n]
+        starts.append(st_p)
         out_k, st_k, m_k = sk.saturator_stage_step(params, st_k, blk, SR)
         out_p, st_p, m_p = sk.saturator_stage_step_plain(params, st_p, blk, SR)
         torch.cuda.synchronize()
@@ -84,11 +144,15 @@ def test_saturator_stage_kernel_matches_plain(channels, cuda_device):
         assert torch.equal(st_k["dsp"]["tone_state"], st_p["dsp"]["tone_state"])
         assert torch.equal(st_k["analyzer"]["onset_cooldown"],
                            st_p["analyzer"]["onset_cooldown"])
-        assert int(st_k["analyzer"]["onset_cooldown"].max()) > 0  # onsets ran
         for key in m_k:
             tol = 1e-4 if key.endswith("score") else 1e-5
             assert float((m_k[key] - m_p[key]).abs().max()) <= tol, key
     assert sk.saturator_stage_step.launches == before + 2
+    if n >= N:
+        assert int(st_k["analyzer"]["onset_cooldown"].max()) > 0  # onsets ran
+    for k, st in enumerate(starts):
+        _assert_raw_equal("saturator", params, st,
+                          clips[..., k * n:(k + 1) * n])
 
 
 @pytest.mark.cuda
@@ -204,15 +268,21 @@ def test_texture_run_corpus_always_on_card(cuda_device):
 
 
 # (name, params, batch, block length) per case: params are a preset name,
-# or a dict over the defaults; punch also at the ragged batches and an odd
-# block length
+# or a dict over the defaults; punch and motion also at the ragged batches,
+# an odd block length and one shorter than a chunk
 _PUNCH_MOTION = [("punch", "Solar Snap", B, N), ("punch", "Apocalypse Tap", B, N),
                  ("motion", None, B, N),
                  ("motion", dict(microvar=0.9, motiondepth=1.8,
                                  repeatctrl=0.2, budget=0.9, mix=0.7), B, N),
                  ("punch", "Solar Snap", RAGGED[0], N),
                  ("punch", "Solar Snap", RAGGED[1], N),
-                 ("punch", "Apocalypse Tap", RAGGED[0], N_ODD)]
+                 ("punch", "Apocalypse Tap", RAGGED[0], N_ODD),
+                 ("motion", None, RAGGED[0], N),
+                 ("motion", None, RAGGED[1], N),
+                 ("motion", dict(microvar=0.9, motiondepth=1.8,
+                                 repeatctrl=0.2, budget=0.9, mix=0.7),
+                  RAGGED[0], N_ODD),
+                 ("motion", None, RAGGED[0], N_SHORT)]
 
 
 def _params(plug, preset):
@@ -227,11 +297,11 @@ def _params(plug, preset):
 @pytest.mark.parametrize("name,preset,batch,n", _PUNCH_MOTION)
 def test_punch_motion_stage_kernel_matches_plain(name, preset, batch, n,
                                                  channels, cuda_device):
-    """Two streamed blocks: audio and every state leaf bit-equal (motion's
-    rng, onset_cooldown and repetition included), metrics within 1e-5
-    (scores 1e-4); motion's onsets ran inside the blocks in most clips. At
-    the largest batch the first block runs twice from one state and must
-    give the same bits."""
+    """Two streamed blocks: audio, every state leaf (motion's rng,
+    onset_cooldown and repetition included) and both lanes bit-equal,
+    metrics within 1e-5 (scores 1e-4); motion's onsets ran inside the
+    blocks in most clips. At the largest batch the first block runs twice
+    from one state and must give the same bits."""
     plug = Plugin(name, SR, channels, n)
     params = _params(plug, preset)
     step = getattr(sk, f"{name}_stage_step")
@@ -243,8 +313,10 @@ def test_punch_motion_stage_kernel_matches_plain(name, preset, batch, n,
         torch.cuda.synchronize()
         _assert_same_step(*runs)
     before = step.launches
+    starts = []
     for k in range(2):
         blk = clips[..., k * n:(k + 1) * n]
+        starts.append(st_p)
         out_k, st_k, m_k = step(params, st_k, blk, SR)
         out_p, st_p, m_p = plain(params, st_p, blk, SR)
         torch.cuda.synchronize()
@@ -260,10 +332,74 @@ def test_punch_motion_stage_kernel_matches_plain(name, preset, batch, n,
             tol = 1e-4 if key.endswith("score") else 1e-5
             assert float((m_k[key] - m_p[key]).abs().max()) <= tol, key
     assert step.launches == before + 2
-    if name == "motion":
+    if name == "motion" and n >= N:
         moved = st_k["dsp"]["rng"] != st0["dsp"]["rng"]
         assert float(moved.float().mean()) > 0.9
         assert int(st_k["dsp"]["onset_cooldown"].max()) > 0
+    for k, st in enumerate(starts):
+        _assert_raw_equal(name, params, st, clips[..., k * n:(k + 1) * n])
+
+
+def _nan_clips(seed, channels, batch, n):
+    """_clips with one NaN sample: clip 3, channel 0, sample 10."""
+    x = _clips(seed, channels, 2, "cpu", batch, n)
+    x[3, 0, 10] = float("nan")
+    return x
+
+
+def _assert_raw_close_nan(name, params, st, blk, sr=SR):
+    """The kernel route against the plain version: every value equal, NaN
+    where the plain version has NaN."""
+    got = _raw_lanes(name, "cuda", params, st, blk, sr)
+    want = _raw_lanes(name, "plain", params, st, blk, sr)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                   msg=f"output {i}")
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("name", ["saturator", "motion"])
+def test_stage_kernel_keeps_nan(name, channels, cuda_device):
+    """A block with one NaN sample through the saturator and motion
+    kernels, then a block after it: audio, every state leaf and both lanes
+    equal the plain version's, NaN where it has NaN (the clamps and extrema
+    keep a NaN, as torch.clamp and torch.maximum do)."""
+    plug = Plugin(name, SR, channels, N)
+    params = (plug.preset("Grain Reactor") if name == "saturator"
+              else plug.default_params())
+    plain = getattr(sk, f"{name}_stage_step_plain")
+    clips = _nan_clips(90 + channels, channels, B, N).to(cuda_device)
+    st = plug.init_state((B,), cuda_device)
+    for k in range(2):
+        blk = clips[..., k * N:(k + 1) * N]
+        want = _assert_raw_close_nan(name, params, st, blk)
+        assert bool(torch.isnan(want[0][3]).any())
+        assert not bool(torch.isnan(want[0][:3]).any())  # the other clips
+        st = plain(params, st, blk, SR)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2])
+def test_texture_kernel_keeps_nan_plastic_2khz(channels, cuda_device):
+    """Plastic at a 2 kHz sample rate: its filters lie past Nyquist and the
+    plain version's output turns NaN within two blocks. The kernel keeps
+    every NaN where the plain version has it and equals it elsewhere:
+    audio, every state leaf (the ring included) and both lanes."""
+    sr, batch = 2000.0, RAGGED[0]
+    plug = Plugin("texture", sr, channels, N).with_static(material=3)
+    params = plug.full_params(plug.default_params())
+    clips = _clips(95 + channels, channels, 2, cuda_device, batch, N)
+    st = _kernel_form(plug.init_state((batch,), cuda_device), 3)
+    nan_seen = False
+    for k in range(2):
+        blk = clips[..., k * N:(k + 1) * N]
+        want = _assert_raw_close_nan("texture", params, st, blk, sr)
+        nan_seen = nan_seen or bool(torch.isnan(want[0]).any())
+        st = sk.texture_stage_step_plain(params, st, blk, sr)[1]
+    assert nan_seen
 
 
 @pytest.mark.cuda

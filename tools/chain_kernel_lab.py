@@ -72,7 +72,9 @@ def _copy(src_dir, name):
 
 ENTRIES = ("juicy_chain_block", "juicy_cuda_error_string",
            "juicy_chain_geometry", "juicy_punch_stage", "juicy_texture_stage",
-           "juicy_punch_geometry", "juicy_texture_geometry")
+           "juicy_saturator_stage", "juicy_motion_stage",
+           "juicy_punch_geometry", "juicy_texture_geometry",
+           "juicy_saturator_geometry", "juicy_motion_geometry")
 
 
 def _load(src_dir, extra=(), sources=("chain.cu",)):
@@ -81,8 +83,8 @@ def _load(src_dir, extra=(), sources=("chain.cu",)):
     so = src_dir / "lib.so"
     cmd = [_build.find_nvcc(), *_build.COMPILE_FLAGS, "-shared", "-I",
            str(src_dir), "-o", str(so),
-           *(str(src_dir / f) for f in sources),
-           str(src_dir / "saturator_stage.cu")]
+           *(str(src_dir / f)
+             for f in dict.fromkeys((*sources, "saturator_stage.cu")))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode:
         raise SystemExit(f"nvcc failed for {src_dir}:\n{proc.stderr[-4000:]}")

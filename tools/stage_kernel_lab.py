@@ -1,35 +1,37 @@
-"""Measurements of the punch and texture stage kernels
-(csrc/punch_stage.cu, csrc/texture_stage.cu) that need a scratch build, on
-one NVIDIA GPU.
+"""Measurements of the stage kernels (csrc/punch_stage.cu,
+csrc/saturator_stage.cu, csrc/texture_stage.cu, csrc/motion_stage.cu) that
+need a scratch build, on one NVIDIA GPU.
 
-    python3 tools/stage_kernel_lab.py compare --parent DIR
-    python3 tools/stage_kernel_lab.py roles
-    python3 tools/stage_kernel_lab.py unroll 1,2
+    python3 tools/stage_kernel_lab.py compare --parent DIR [--kernels K,...]
+    python3 tools/stage_kernel_lab.py roles [--kernels K,...]
+    python3 tools/stage_kernel_lab.py unroll 1,2 [--kernels K,...]
 
-Each subcommand copies a ``csrc/`` into the git-ignored ``_archive/lab/``,
-patches the copy there where it needs to and builds it with the package's
-own nvcc flags (tools/chain_kernel_lab.py's helpers); nothing in the
-package changes, and no stamp is compiled into it.
+``--kernels`` picks among punch, saturator, motion and texture (every
+material); all four by default. Each subcommand copies a ``csrc/`` into the
+git-ignored ``_archive/lab/``, patches the copy there where it needs to and
+builds it with the package's own nvcc flags (tools/chain_kernel_lab.py's
+helpers); nothing in the package changes, and no stamp is compiled into it.
 
 - ``compare``: the kernels of DIR (a parent's ``csrc/``, e.g. from
-  ``git archive 977934d juicy_tpu_torch/csrc``; the same C interface)
-  against the present ones, for punch and every texture material at
+  ``git archive 3402282 juicy_tpu_torch/csrc``; the same C interface)
+  against the present ones, for each kernel (texture: every material) at
   B = 4096 and 8192 (N = 512, stereo): outputs, state and both lanes held
   equal bit for bit, then each alone per block in turns (parent, new, new,
-  parent); then ``run_corpus`` for punch and texture gel, metal and wood
-  at B = 4096 x 94 blocks in the same turns.
+  parent); then ``run_corpus`` for punch, the saturator, motion and
+  texture gel, metal and wood at B = 4096 x 94 blocks in the same turns.
 - ``roles``: ``clock64()`` stamps in the present kernels at the end of
   each warp's role and of the pre lane, in cycles since the CTA's start,
   and each warp's cycles spent waiting on its barriers (pipe.cuh's
   mbar_wait), mean (and max) over CTAs.
 - ``unroll``: the present kernels with the lanes' sample loops
-  (stage_lane.cuh part_pass) unrolled by each factor, side by side: registers and spills,
-  outputs equal to the plain version's on a ragged batch, times in turns.
+  (stage_lane.cuh part_pass) unrolled by each factor, side by side:
+  registers and spills, outputs equal to the plain version's on a ragged
+  batch, times in turns.
 
 Kernels are timed alone with chip_smoke.py's kernel_ms (launches queued
-behind a spin kernel, so the host's launch time is not counted). Each run prints the card's name and power limit first. Inputs are
-chip_smoke.py's, from a seed. Needs a CUDA device and nvcc; imports no
-JAX.
+behind a spin kernel, so the host's launch time is not counted). Each run
+prints the card's name and power limit first. Inputs are chip_smoke.py's,
+from a seed. Needs a CUDA device and nvcc; imports no JAX.
 """
 
 from __future__ import annotations
@@ -49,33 +51,50 @@ from chain_kernel_lab import cs  # noqa: E402
 from juicy_tpu_torch.kernels import _build  # noqa: E402
 from juicy_tpu_torch.kernels import stage_kernels as sk  # noqa: E402
 
-SOURCES = ("punch_stage.cu", "texture_stage.cu")
-CASES = (None, 0, 1, 2, 3, 4)  # punch, then texture by material
+KERNELS = ("punch", "saturator", "motion", "texture")
+#: (kernel, texture material or None)
+CASES = (("punch", None), ("saturator", None), ("motion", None),
+         *(("texture", m) for m in range(5)))
+#: the run_corpus cells of ``compare``
+CORPORA = (("punch", None), ("saturator", None), ("motion", None),
+           ("texture", 0), ("texture", 1), ("texture", 2))
 BATCHES = (4096, 8192)
 
 
-def _name(mode):
-    return "punch" if mode is None else f"texture {cs.MATERIALS[mode]}"
+def _name(case):
+    kernel, mode = case
+    return kernel if mode is None else f"texture {cs.MATERIALS[mode]}"
 
 
-def _setup(mode, b, device):
-    """(params, block, a maker of fresh states) for punch or texture
-    `mode`."""
+def _plugin(case, n=cs.BLOCK):
+    """(plugin, params) of a case: punch "Solar Snap", the saturator "Amber
+    Heat", motion and texture at their defaults."""
     from juicy_tpu_torch.runtime.plugin import Plugin
 
-    if mode is None:
-        plug = Plugin("punch", cs.SR, cs.CHANNELS, cs.BLOCK)
-        params = plug.preset(cs.PUNCH_PRESET)
+    kernel, mode = case
+    plug = Plugin(kernel, cs.SR, cs.CHANNELS, n)
+    if kernel == "texture":
+        plug = plug.with_static(material=mode)
+        return plug, plug.full_params(plug.default_params())
+    params = {"punch": lambda: plug.preset(cs.PUNCH_PRESET),
+              "saturator": lambda: plug.preset(cs.PRESET),
+              "motion": plug.default_params}[kernel]()
+    return plug, params
+
+
+def _setup(case, b, device):
+    """(params, block, a maker of fresh states) for `case`: punch and motion
+    on the burst input, the saturator and texture on bench.py's signal."""
+    kernel, mode = case
+    plug, params = _plugin(case)
+    if kernel in ("punch", "motion"):
         x = cs.make_clicks(b, cs.CHANNELS, cs.BLOCK, device, seed=19)
     else:
-        plug = Plugin("texture", cs.SR, cs.CHANNELS,
-                      cs.BLOCK).with_static(material=mode)
-        params = plug.full_params(plug.default_params())
         x = cs.make_batch(b, cs.CHANNELS, cs.BLOCK, device, seed=13)
 
     def state():
         st = plug.init_state((b,), device)
-        if mode is not None:
+        if kernel == "texture":
             st = {"analyzer": st["analyzer"],
                   "dsp": sk.texture_kernel_state(st["dsp"], mode)}
         return st
@@ -83,28 +102,46 @@ def _setup(mode, b, device):
     return params, x, state
 
 
-def _lanes(mode, params, x, st):
-    """The kernel route's raw results: (out, dsp', pre fin, pre acc, post
-    fin, post acc)."""
+def _route(case, route, params, x, st):
+    """The kernel's (route "cuda") or the plain version's raw results:
+    (out, state', pre fin, pre acc, post fin, post acc)."""
+    kernel, mode = case
     lane0 = sk.pack_lane(st["analyzer"], x.shape[0])
-    if mode is None:
-        return sk._punch_lanes_cuda(x, st["dsp"], lane0, params, cs.SR)
-    return sk._tex_lanes_cuda(x, st["dsp"], lane0, params, cs.SR, mode)
+    if kernel == "saturator":
+        return getattr(sk, f"_sat_lanes_{route}")(
+            x, st["dsp"]["tone_state"], lane0, sk._sat_scalars(params, cs.SR))
+    if kernel == "texture":
+        return getattr(sk, f"_tex_lanes_{route}")(x, st["dsp"], lane0, params,
+                                                  cs.SR, mode)
+    return getattr(sk, f"_{kernel}_lanes_{route}")(x, st["dsp"], lane0,
+                                                   params, cs.SR)
 
 
-def _launcher(mode, params, x, st):
+def _launcher(case, params, x, st):
     """One launch on prepared buffers, for timing."""
+    kernel, mode = case
     lane0 = sk.pack_lane(st["analyzer"], x.shape[0])
-    if mode is None:
-        bufs = sk.punch_cuda_buffers(x, st["dsp"], lane0)
-        return lambda: sk.punch_cuda_launch(bufs, params, cs.SR)
-    bufs = sk.tex_cuda_buffers(x, st["dsp"], lane0, mode)
-    return lambda: sk.tex_cuda_launch(bufs, params, cs.SR, mode)
+    if kernel == "saturator":
+        bufs = sk.sat_cuda_buffers(x, st["dsp"]["tone_state"], lane0)
+        scalars = sk._sat_scalars(params, cs.SR)
+        return lambda: sk.sat_cuda_launch(bufs, scalars)
+    if kernel == "texture":
+        bufs = sk.tex_cuda_buffers(x, st["dsp"], lane0, mode)
+        return lambda: sk.tex_cuda_launch(bufs, params, cs.SR, mode)
+    bufs = getattr(sk, f"{kernel}_cuda_buffers")(x, st["dsp"], lane0)
+    launch = getattr(sk, f"{kernel}_cuda_launch")
+    return lambda: launch(bufs, params, cs.SR)
+
+
+def _picked(cases, kernels):
+    return [c for c in cases if c[0] in kernels]
 
 
 def _equal(a, b):
     out_a, dsp_a, *raw_a = a
     out_b, dsp_b, *raw_b = b
+    if isinstance(dsp_a, torch.Tensor):
+        dsp_a, dsp_b = {"tone_state": dsp_a}, {"tone_state": dsp_b}
     return (torch.equal(out_a, out_b) and set(dsp_a) == set(dsp_b)
             and all(torch.equal(dsp_a[k], dsp_b[k]) for k in dsp_a)
             and all(torch.equal(p, q) for p, q in zip(raw_a, raw_b)))
@@ -112,21 +149,21 @@ def _equal(a, b):
 
 def cmd_compare(args, device):
     from juicy_tpu_torch.parallel.corpus import run_corpus
-    from juicy_tpu_torch.runtime.plugin import Plugin
 
+    sources = tuple(f"{k}_stage.cu" for k in args.kernels)
     libs = {"parent": lab._load(lab._copy(Path(args.parent), "parent"),
-                                sources=SOURCES)[0],
+                                sources=sources)[0],
             "new": lab._load(lab._copy(_build.SRC_DIR, "new"),
-                             sources=SOURCES)[0]}
+                             sources=sources)[0]}
     order = ("parent", "new", "new", "parent")
     all_equal = True
     for b in BATCHES:
-        for mode in CASES:
-            params, x, state = _setup(mode, b, device)
+        for case in _picked(CASES, args.kernels):
+            params, x, state = _setup(case, b, device)
             res = {}
             for name, lib in libs.items():
                 lab._use(lib)
-                res[name] = _lanes(mode, params, x, state())
+                res[name] = _route(case, "cuda", params, x, state())
             torch.cuda.synchronize()
             same = _equal(res["parent"], res["new"])
             all_equal = all_equal and same
@@ -134,26 +171,24 @@ def cmd_compare(args, device):
             times = []
             for name in order:
                 lab._use(libs[name])
-                times.append(cs.kernel_ms(_launcher(mode, params, x, state()),
+                times.append(cs.kernel_ms(_launcher(case, params, x, state()),
                                           20))
             parent = (times[0] + times[3]) / 2
             new = (times[1] + times[2]) / 2
-            print(f"{_name(mode)} B={b}: " + ", ".join(
+            print(f"{_name(case)} B={b}: " + ", ".join(
                 f"{n} {t:.4f}" for n, t in zip(order, times))
                 + f" ms alone; parent {parent:.4f}, new {new:.4f}, "
                 f"speed-up {parent / new:.2f}x; outputs, state and lanes "
                 f"equal: {same}", flush=True)
     b, n = cs.BATCH, cs.BLOCK
-    for mode in (None, 0, 1, 2):
-        if mode is None:
-            plug = Plugin("punch", cs.SR, cs.CHANNELS, n)
-            params = plug.preset(cs.PUNCH_PRESET)
+    for case in _picked(CORPORA, args.kernels):
+        plug, _params = _plugin(case, n)
+        params = (plug.default_params() if case[0] == "texture"
+                  else _params)
+        if case[0] in ("punch", "motion"):
             clips = cs.make_clicks(b, cs.CHANNELS, cs.NUM_BLOCKS * n, device,
                                    seed=23)
         else:
-            plug = Plugin("texture", cs.SR, cs.CHANNELS,
-                          n).with_static(material=mode)
-            params = plug.default_params()
             clips = cs.make_batch(b, cs.CHANNELS, cs.NUM_BLOCKS * n, device,
                                   seed=17)
         walls, outs = [], {}
@@ -170,7 +205,7 @@ def cmd_compare(args, device):
         same = torch.equal(outs["parent"], outs["new"])
         all_equal = all_equal and same
         t = clips.shape[-1]
-        print(f"run_corpus {_name(mode)} B={b} x {cs.NUM_BLOCKS} blocks: "
+        print(f"run_corpus {_name(case)} B={b} x {cs.NUM_BLOCKS} blocks: "
               + ", ".join(f"{nm} {w:.4f} s ({b * t / cs.SR / w:.1f} "
                           f"audio-s/s)" for nm, w in zip(order, walls))
               + f"; outputs equal: {same}", flush=True)
@@ -183,6 +218,10 @@ def cmd_compare(args, device):
 ROLES = {
     "punch_stage.cu": ("V", "L", "E", "F0", "F1", "H0", "H1", "H2", "H3",
                        "H4", "H5"),
+    "saturator_stage.cu": ("V", "L", "E", "S0", "S1", "H0", "H1", "H2",
+                           "H3"),
+    "motion_stage.cu": ("V", "L", "E", "P", "Z0", "Z1", "C0", "C1", "G",
+                        "H0", "H1", "H2", "H3", "H4", "H5", "H6", "H7"),
     "texture_stage.cu": ("V", "L", "E", "F0", "F1", "M0", "M1", "W0", "W1",
                          "D0", "D1", "H0", "H1", "H2", "H3"),
 }
@@ -208,7 +247,7 @@ extern "C" int juicy_stage_waits_clear() {
 
 def cmd_roles(args, device):
     libs = {}
-    for src_name in ROLES:
+    for src_name in (f"{k}_stage.cu" for k in args.kernels):
         src = lab._copy(_build.SRC_DIR, f"roles_{src_name.split('.')[0]}")
         lane = (src / "stage_lane.cuh").read_text()
         lane = lab._insert(lane, "namespace juicy {\n", lab.STAMP_HELPERS + (
@@ -238,13 +277,13 @@ def cmd_roles(args, device):
             sources=(src_name,))[0]
         libs[src_name].juicy_stage_waits_clear.argtypes = []
     for b in BATCHES:
-        for mode in CASES:
-            src_name = SOURCES[0 if mode is None else 1]
+        for case in _picked(CASES, args.kernels):
+            src_name = f"{case[0]}_stage.cu"
             names = (*ROLES[src_name], "L: the pre lane")
             lib = libs[src_name]
             lab._use(lib)
-            params, x, state = _setup(mode, b, device)
-            launch = _launcher(mode, params, x, state())
+            params, x, state = _setup(case, b, device)
+            launch = _launcher(case, params, x, state())
             ms = cs.kernel_ms(launch, 20)
             torch.cuda.synchronize()
             if lib.juicy_stage_waits_clear():
@@ -260,7 +299,7 @@ def cmd_roles(args, device):
             rows = [*range(len(names) - 1), PRE]
             st = st[rows, :ctas].double()
             wt = wt[rows, :ctas].double()
-            print(f"{_name(mode)} B={b}: {ms:.4f} ms per launch; cycles "
+            print(f"{_name(case)} B={b}: {ms:.4f} ms per launch; cycles "
                   f"since each CTA's start, mean over {ctas} CTAs (max); "
                   f"cycles waiting on barriers, mean:")
             for k, (name, m, mx) in enumerate(zip(
@@ -275,6 +314,7 @@ def cmd_unroll(args, device):
     import re
 
     factors = [int(u) for u in args.factors.split(",")]
+    sources = tuple(f"{k}_stage.cu" for k in args.kernels)
     libs = {}
     for u in factors:
         src = lab._copy(_build.SRC_DIR, f"unroll{u}")
@@ -283,42 +323,50 @@ def cmd_unroll(args, device):
             raise SystemExit("stage_lane.cuh: the lane loops' pragmas moved")
         (src / "stage_lane.cuh").write_text(
             lane.replace("#pragma unroll 1\n", f"#pragma unroll {u}\n"))
-        libs[u], log = lab._load(src, sources=SOURCES)
+        libs[u], log = lab._load(src, sources=sources)
         regs = re.findall(r"Used (\d+) registers", log)
         spills = re.findall(r"(\d+) bytes spill stores", log)
         print(f"unroll {u}: registers {regs}, spill stores {spills}")
-    for mode in CASES:
-        params, x, state = _setup(mode, cs.RAGGED_BATCH, device)
-        st = state()
-        lane0 = sk.pack_lane(st["analyzer"], x.shape[0])
-        ref = (sk._punch_lanes_plain(x, st["dsp"], lane0, params, cs.SR)
-               if mode is None else
-               sk._tex_lanes_plain(x, st["dsp"], lane0, params, cs.SR, mode))
+    for case in _picked(CASES, args.kernels):
+        params, x, state = _setup(case, cs.RAGGED_BATCH, device)
+        ref = _route(case, "plain", params, x, state())
         for u, lib in libs.items():
             lab._use(lib)
-            res = _lanes(mode, params, x, state())
+            res = _route(case, "cuda", params, x, state())
             torch.cuda.synchronize()
-            print(f"unroll {u} {_name(mode)} B={cs.RAGGED_BATCH}: equal to "
+            print(f"unroll {u} {_name(case)} B={cs.RAGGED_BATCH}: equal to "
                   f"the plain version {_equal(res, ref)}")
     for b in BATCHES:
-        for mode in CASES:
-            params, x, state = _setup(mode, b, device)
+        for case in _picked(CASES, args.kernels):
+            params, x, state = _setup(case, b, device)
             times = {u: [] for u in libs}
             for u in [*libs, *reversed(list(libs))]:
                 lab._use(libs[u])
-                times[u].append(cs.kernel_ms(_launcher(mode, params, x,
+                times[u].append(cs.kernel_ms(_launcher(case, params, x,
                                                        state()), 20))
-            print(f"{_name(mode)} B={b}: " + ", ".join(
+            print(f"{_name(case)} B={b}: " + ", ".join(
                 f"unroll {u} {sum(t) / len(t):.4f} ms"
                 for u, t in times.items()), flush=True)
+
+
+def _kernels(text):
+    names = tuple(k for k in text.split(",") if k)
+    bad = [k for k in names if k not in KERNELS]
+    if bad:
+        raise argparse.ArgumentTypeError(f"unknown kernels {bad}; pick from "
+                                         f"{','.join(KERNELS)}")
+    return names
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="cmd", required=True)
-    sub.add_parser("compare").add_argument("--parent", required=True)
-    sub.add_parser("roles")
-    sub.add_parser("unroll").add_argument("factors")
+    cmds = {"compare": sub.add_parser("compare"), "roles": sub.add_parser("roles"),
+            "unroll": sub.add_parser("unroll")}
+    cmds["compare"].add_argument("--parent", required=True)
+    cmds["unroll"].add_argument("factors")
+    for p in cmds.values():
+        p.add_argument("--kernels", type=_kernels, default=KERNELS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("stage_kernel_lab: needs a CUDA device")
