@@ -84,6 +84,27 @@ on the card from a seed. Phases, each of which raises on failure:
     on the first 256 clips × 8 blocks (<= -100 dBFS, last-block scores
     within 1e-3), and the timed run's first 256 clips × 8 blocks equal to
     the "always" run bit for bit (the chain is causal);
+4f. per-clip texture materials: the mixed chain kernel (a material per CTA
+    of 32 clips) and the mixed texture stage kernel against their plain
+    versions at B = 100 with a material per clip at random (sorted into
+    runs padded to 32) over two blocks, audio, every state leaf and both
+    lanes bit-equal, and a uniform material array through each bit-equal
+    to the static launch; ``run_corpus_chain(materials=arange(B) % 5)`` on
+    bench.py's chain at B = 8192 (bench.py:450 ``bench_mixed_materials``,
+    94 blocks): one launch per block and no other, its scoring-only wall
+    beside gel's, its first 256 clips x 2 blocks against "never" (<= -100
+    dBFS, scores within 1e-3) and equal to a separate run of them; the two
+    mixed kernels alone at B = 4096 and 8192 beside gel's static launch in
+    turns, with their bounds for the mixed corpus and their geometry; and
+    ``run_corpus`` on a texture plugin with a material per clip at B =
+    4096 (94 launches; 256 clips x 4 blocks against "never");
+4g. per-block automation: the automated chain stream (a constant row per
+    block) against its plain version at B = 100 over three blocks, audio,
+    every state leaf and both lanes bit-equal; ``run_corpus_chain`` with
+    the saturator's drive, punch's mix and infer's sensitivity automated
+    at B = 8192 (94 launches and no other; its wall beside the
+    unautomated one; 256 clips x 4 blocks against "never"); the automated
+    launch alone beside the unautomated one, in turns;
 5.  serving: ``StreamServer`` on bench.py's chain with 4096 slots, all
     open, fed the burst input (PCM16 values) by ``submit_many``: 8 ticks,
     one chain-kernel launch per tick and no other; then per-slot edits on a
@@ -151,6 +172,18 @@ SERVE_CHECK_SLOTS = 64
 SERVE_TIMED = 30                 # bench.py:658, steps
 CHAIN_MATERIALS = (0, 2)         # gel (bench.py's chain) and wood (bench.py:796)
 MATERIALS = ("gel", "metal", "wood", "plastic", "flesh")
+MIXED_BATCH = 8192                # bench.py:450, bench_mixed_materials
+MIXED_SEED = 53
+MIXED_CHECK_BLOCKS = 2
+MIXED_TEX_CHECK_BLOCKS = 4
+AUTO_CHECK_BLOCKS = 4
+# curves over the corpus, resampled to one value per block
+# (runtime/stream.py::automation_curve): the saturator's drive, punch's mix
+# and infer's sensitivity
+AUTOMATION = {1: {"drive": [3.0, 15.0, 6.0]}, 0: {"mix": [0.4, 1.0]},
+              6: {"sensitivity": [0.6, 1.4]}}
+# BASELINE.json config #3, punch with automation: its amount and mix
+PUNCH_AUTOMATION = {"punch": [0.2, 1.4, 0.7, 1.1], "mix": [1.0, 0.6]}
 CORPUS_MATERIALS = (0, 1, 2)      # bench.py's texture rows
 REFERENCE_MATERIAL = 1            # the texture row of the kernels line
 
@@ -271,17 +304,21 @@ def saturator_bound(b, c, n):
     return bound(nbytes, b * n * (2 * LANE_OPS + c * SAT_OPS))
 
 
-def texture_bound(b, c, n, mode, delay):
-    """Audio, state and lanes once each way. Wood and plastic also read the
-    ring rows this block reads before it writes them (ceil(delay) + 1 of
-    them, at most n + 1) and write n rows, plus the write indices."""
+def texture_work(b, c, n, mode, delay):
+    """(bytes, operations) of one texture block: audio, state and lanes
+    once each way. Wood and plastic also read the ring rows this block
+    reads before it writes them (ceil(delay) + 1 of them, at most n + 1)
+    and write n rows, plus the write indices."""
     nbytes = 4 * (2 * b * c * n + 2 * (9 + TEX_NMAT[mode]) * b * c + 2 * b
                   + 5 * b + 2 * 15 * b)
     if mode in (2, 3):
         rows_in = min(math.ceil(delay) + 1, n + 1)
         nbytes += 4 * b * c * (rows_in + n) + 2 * 4 * b * c
-    return bound(nbytes, b * n * (2 * LANE_OPS + c * (TEX_OPS
-                                                     + TEX_MAT_OPS[mode])))
+    return nbytes, b * n * (2 * LANE_OPS + c * (TEX_OPS + TEX_MAT_OPS[mode]))
+
+
+def texture_bound(b, c, n, mode, delay):
+    return bound(*texture_work(b, c, n, mode, delay))
 
 
 def punch_bound(b, c, n):
@@ -300,10 +337,27 @@ def motion_bound(b, c, n):
 
 
 def chain_bound(b, c, n, mode, tex_delay, haas_delay):
-    """The chain kernel per block: audio in and out; every stage's state in
-    and out (texture's ring rows as in texture_bound; the Haas ring's rows
-    this block reads before it writes them, min(delay, n), and the n it
-    writes; cohere's context fit out); seven lanes in and 14 out."""
+    return bound(*chain_work(b, c, n, mode, tex_delay, haas_delay))
+
+
+def mixed_bound(work, counts):
+    """The bound of a mixed-material launch: each material's (bytes,
+    operations) from `work(clips, mode)` for the corpus's own clips of it
+    (`counts` {mode: clips}), summed. The padding clips that the sort adds
+    are not work the function needs: their time is lost efficiency."""
+    nbytes = ops = 0
+    for mode, nb in counts.items():
+        w = work(nb, mode)
+        nbytes, ops = nbytes + w[0], ops + w[1]
+    return bound(nbytes, ops)
+
+
+def chain_work(b, c, n, mode, tex_delay, haas_delay):
+    """(bytes, operations) of the chain kernel per block: audio in and out;
+    every stage's state in and out (texture's ring rows as in texture_work;
+    the Haas ring's rows this block reads before it writes them,
+    min(delay, n), and the n it writes; cohere's context fit out); seven
+    lanes in and 14 out."""
     state = (2 * c + c + (9 + TEX_NMAT[mode]) * c + 3 * c + c   # per clip
              + 1 + 12 + 5)
     nbytes = 4 * (2 * b * c * n + 2 * state * b + b + 7 * 5 * b
@@ -314,7 +368,7 @@ def chain_bound(b, c, n, mode, tex_delay, haas_delay):
     per_clip = (14 * LANE_OPS + MOTION_P1_OPS + WIDTH_OPS + COHERE_A_OPS
                 + c * (PUNCH_OPS + SAT_OPS + TEX_OPS + TEX_MAT_OPS[mode]
                        + MOTION_P2_OPS + COHERE_R_OPS + INFER_OPS))
-    return bound(nbytes, b * n * per_clip)
+    return nbytes, b * n * per_clip
 
 
 def stage_steps():
@@ -562,23 +616,24 @@ def phase_texture_kernel_vs_plain(device):
     return res
 
 
-def corpus_run(tag, plugin, params, clips, step):
+def corpus_run(tag, plugin, params, clips, step, automation=None):
     """One corpus path at full width: a warm-up, then the timed run with
     every launch count set to 0 before it and read after it; `step`'s kernel
     must have launched once per block and no other. The timed run's first
     CHECK_CLIPS clips are then held against ``use_kernel="never"``: at full
     depth for the FULL_DEPTH_CHECKS, else over CHAIN_CHECK_BLOCKS blocks, as
     4e does (the kernel route run there too, and equal to the timed run's
-    first blocks bit for bit: the plugins are causal)."""
-    from juicy_tpu_torch.kernels import stage_kernels as sk
+    first blocks bit for bit: the plugins are causal). `automation`
+    ({param: [NUM_BLOCKS]}) goes to every run, cut to the check's blocks.
+    Returns (launches, the timed run's wall)."""
     from juicy_tpu_torch.parallel.corpus import run_corpus
 
-    run_corpus(plugin, params, clips)            # warm-up
+    run_corpus(plugin, params, clips, automation=automation)     # warm-up
     torch.cuda.synchronize()
 
     reset_launches()
     t0 = time.perf_counter()
-    out, last, agg = run_corpus(plugin, params, clips)
+    out, last, agg = run_corpus(plugin, params, clips, automation=automation)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = step.launches
@@ -596,14 +651,17 @@ def corpus_run(tag, plugin, params, clips, step):
     full = tag in FULL_DEPTH_CHECKS
     depth = t if full else CHAIN_CHECK_BLOCKS * BLOCK
     sub = clips[:CHECK_CLIPS, :, :depth]
+    auto = None if automation is None else {
+        k: v[:depth // BLOCK] for k, v in automation.items()}
     if full:
         out_k, last_k = out[:CHECK_CLIPS], {"score": last["score"][:CHECK_CLIPS]}
     else:
-        out_k, last_k, _ = run_corpus(plugin, params, sub)
+        out_k, last_k, _ = run_corpus(plugin, params, sub, automation=auto)
         if not torch.equal(out_k, out[:CHECK_CLIPS, :, :depth]):
             raise AssertionError(f"{tag}: the timed run's first clips differ "
                                  f"from the check run")
-    out_n, last_n, _ = run_corpus(plugin, params, sub, use_kernel="never")
+    out_n, last_n, _ = run_corpus(plugin, params, sub, use_kernel="never",
+                                  automation=auto)
     torch.cuda.synchronize()
     db = residual_dbfs(out_k, out_n)
     ds = max_diff(last_k["score"], last_n["score"])
@@ -613,7 +671,7 @@ def corpus_run(tag, plugin, params, clips, step):
     if db > -100.0 or ds > 1e-3:
         raise AssertionError(f"{tag}: kernel corpus path disagrees with "
                              f"batched_run")
-    return launches
+    return launches, wall
 
 
 def phase_corpus(device, plugin, params):
@@ -621,7 +679,7 @@ def phase_corpus(device, plugin, params):
 
     clips = make_batch(BATCH, CHANNELS, NUM_BLOCKS * BLOCK, device)
     return corpus_run("saturator", plugin, params, clips,
-                      sk.saturator_stage_step)
+                      sk.saturator_stage_step)[0]
 
 
 def model_kernel_vs_plain(device, name, params, x, timed=True):
@@ -727,7 +785,7 @@ def phase_punch_motion_corpus(device):
         plugin = Plugin(name, SR, CHANNELS, BLOCK)
         params = plugin.preset(preset) if preset else plugin.default_params()
         launches[name] = corpus_run(name, plugin, params, clips,
-                                    stage_steps()[name])
+                                    stage_steps()[name])[0]
     return launches
 
 
@@ -1088,6 +1146,495 @@ def phase_chain_corpus(device):
             "ms_by_batch": by_batch}
 
 
+def tensors_equal(tag, got, want):
+    """Two lists of tensors equal bit for bit (NaN where the other has
+    NaN); raises naming the first that differs."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} tensors against {len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != b.dtype or a.shape != b.shape or not bool(
+                ((a == b) | (torch.isnan(a) & torch.isnan(b))).all()):
+            raise AssertionError(f"{tag}: tensor {i} differs")
+
+
+def bench_chain():
+    """bench.py's chain (texture gel)."""
+    from juicy_tpu_torch.runtime.plugin import Chain
+
+    return Chain(CHAIN, SR, CHANNELS, BLOCK)
+
+
+def traced_chain(materials):
+    """bench.py's chain whose texture stage takes a material per clip."""
+    from juicy_tpu_torch.runtime.plugin import Chain, Plugin
+
+    chain = Chain(CHAIN, SR, CHANNELS, BLOCK)
+    chain.plugins[2] = Plugin("texture", SR, CHANNELS,
+                              BLOCK).with_traced("material")
+    chain.params[2] = dict(
+        {k: v for k, v in chain.params[2].items() if k != "material"},
+        material=torch.as_tensor(np.asarray(materials), dtype=torch.float32))
+    return chain
+
+
+def raw_chain(route, chain, st0, clips, automation=None):
+    """The chain kernel's raw route ("cuda" or "plain") over `clips`, sorted
+    by material where the CTAs need it: [audio, every DSP state leaf, fin,
+    acc, context fit] in corpus order."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.runtime.chain_fused import chain_automation
+
+    run = ck._run_cuda if route == "cuda" else ck._run_plain
+    curves = chain_automation(chain, automation, clips.shape[-1] // BLOCK)
+    out, dsps, fin, acc, fit = ck._ordered(run, chain, list(st0), clips, True,
+                                           None, curves)
+    return [out, *[d[k] for d in dsps for k in sorted(d)], fin, acc, fit]
+
+
+def kernel_launcher(chain, b, x, tables=None):
+    """One chain-kernel launch on prepared buffers (block `x` [B, 2, N]);
+    with per-block constant `tables`, block i's row in turn."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    device = x.device
+    st0 = chain.init_state((b,), device)
+    kc = ck.KernelChain(chain, st0, b, device)
+    xt = x.permute(2, 1, 0).contiguous()
+    out = torch.empty_like(xt)
+    fin, acc, fit = (v[0] for v in ck._lane_buffers(1, b, device))
+    prev = ck.lane_seed([st["analyzer"] for st in st0], b, device)
+    turn = [0]
+
+    def launch():
+        if tables is not None:
+            kc.consts = tables[turn[0] % len(tables)]
+            turn[0] += 1
+        kc.launch(xt, out, prev, fin, acc, fit)
+    return kc, launch
+
+
+def walls_in_turns(run, first, second):
+    """Host walls of `run(tag)` (work that ends in a synchronize) for two
+    tags in turns, first, second, second, first, after one warm-up each:
+    {tag: [wall s, wall s]}."""
+    walls = {first: [], second: []}
+    for tag in (first, second):
+        run(tag)
+    torch.cuda.synchronize()
+    for tag in (first, second, second, first):
+        t0 = time.perf_counter()
+        run(tag)
+        torch.cuda.synchronize()
+        walls[tag].append(time.perf_counter() - t0)
+    return walls
+
+
+def mixed_counts(mats):
+    """{material: the corpus's clips of it} for per-clip materials `mats`
+    (the padding of the sorted batch left out)."""
+    return {m: int(c) for m, c in enumerate(np.bincount(mats, minlength=5))
+            if c}
+
+
+def phase_mixed_materials(device):
+    """4f: per-clip texture materials. The mixed chain kernel (a material
+    per CTA) and the mixed texture stage kernel against their plain
+    versions at B = 100 with a material per clip at random (sorted and
+    padded to runs of 32) over two blocks, audio, every state leaf and both
+    lanes bit-equal; a uniform material array through each mixed kernel
+    bit-equal to its static launch; then run_corpus_chain(materials=) on
+    bench_mixed_materials' corpus (B = 8192, materials arange(B) % 5, 94
+    blocks) and run_corpus on a texture plugin with a material per clip (B
+    = 4096, 94 blocks): each path's launches, its walls beside gel's, its
+    first clips against the never-path; the kernels alone at B = 4096 and
+    8192 beside gel's, with their geometry and bounds."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+    from juicy_tpu_torch.models import texture as tex
+    from juicy_tpu_torch.models import width as wid
+    from juicy_tpu_torch.parallel.corpus import run_corpus, run_corpus_chain
+    from juicy_tpu_torch.runtime.plugin import Chain, Plugin
+
+    t_phase = time.perf_counter()
+    n = BLOCK
+    rng = np.random.default_rng(MIXED_SEED)
+    mats = rng.integers(0, 5, RAGGED_BATCH)
+    x = make_clicks(RAGGED_BATCH, CHANNELS, 2 * n, device, seed=43,
+                    period=2 * n)
+    chain = traced_chain(mats)
+    st0 = chain.init_state((RAGGED_BATCH,), device)
+    got = raw_chain("cuda", chain, st0, x)
+    want = raw_chain("plain", chain, st0, x)
+    tensors_equal("mixed chain", got, want)
+    err = max_diff(got[0], want[0])
+    static = Chain(chain_stages(0), SR, CHANNELS, n)
+    tensors_equal("mixed chain, uniform gel",
+                  raw_chain("cuda", traced_chain(np.zeros(RAGGED_BATCH)),
+                            st0, x),
+                  raw_chain("cuda", static, st0, x))
+    print(f"mixed chain kernel 2 blocks at B={RAGGED_BATCH} (materials "
+          f"{np.bincount(mats, minlength=5).tolist()} of gel..flesh, sorted "
+          f"into runs of 32): audio, every state leaf and both lanes "
+          f"bit-equal to the plain version; a uniform gel array bit-equal "
+          f"to the static launch")
+
+    mode = torch.from_numpy(mats)
+    order = sk.MaterialOrder(mode)
+    plug = Plugin("texture", SR, CHANNELS, n).with_traced("material")
+    params = plug.full_params(dict(plug.default_params(),
+                                   material=order.mode.float()))
+    xs = order.clips(x)
+    raws = {}
+    for route in ("cuda", "plain"):
+        st = plug.init_state((len(order.take),), device)
+        dsp = sk.texture_kernel_state(st["dsp"], order.mode)
+        lane0 = sk.pack_lane(st["analyzer"], len(order.take))
+        fn = getattr(sk, f"_tex_lanes_{route}")
+        res = []
+        for k in range(2):
+            out, dsp, *lanes = fn(xs[..., k * n:(k + 1) * n], dsp, lane0,
+                                  params, SR, order.mode)
+            res += [out, *[dsp[key] for key in sorted(dsp)], *lanes]
+            lane0 = lanes[2]
+        raws[route] = res
+    tensors_equal("mixed texture", raws["cuda"], raws["plain"])
+    tex_err = max_diff(raws["cuda"][0], raws["plain"][0])
+    gel = Plugin("texture", SR, CHANNELS, n).with_static(material=0)
+    p_gel = gel.full_params(gel.default_params())
+    st = gel.init_state((RAGGED_BATCH,), device)
+    uni = torch.zeros(RAGGED_BATCH, dtype=torch.int64)
+    outs = []
+    for mode_, p_ in ((uni, dict(p_gel, material=uni.float())), (0, p_gel)):
+        bufs = sk.tex_cuda_buffers(x[..., :n], sk.texture_kernel_state(
+            st["dsp"], mode_), sk.pack_lane(st["analyzer"], RAGGED_BATCH),
+            mode_)
+        sk.tex_cuda_launch(bufs, p_, SR, mode_)
+        outs.append([bufs[k] for k in ("out", "dsp_out", "mat_out", "rng_out",
+                                       "pre_fin", "pre_acc", "post_fin",
+                                       "post_acc")])
+    tensors_equal("mixed texture, uniform gel", *outs)
+    print(f"mixed texture kernel 2 blocks at B={RAGGED_BATCH}: audio, every "
+          f"state leaf and both lanes bit-equal to the plain version; a "
+          f"uniform gel array bit-equal to the static launch")
+
+    # the chain on bench_mixed_materials' corpus: the main path's mixed form
+    b = MIXED_BATCH
+    mats = np.arange(b) % 5
+    clips = make_clicks(b, CHANNELS, NUM_BLOCKS * n, device, seed=31)
+    run_corpus_chain(bench_chain(), clips, materials=mats)      # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, ms, agg = run_corpus_chain(bench_chain(), clips, materials=mats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, other = chain_step().launches, other_launches(chain_step())
+    if launches != NUM_BLOCKS or other:
+        raise AssertionError(f"mixed chain corpus: {launches} chain-kernel "
+                             f"launches (and {other} of another kernel) for "
+                             f"{NUM_BLOCKS} blocks")
+    check_corpus_outputs(out, clips, ms[-1])
+    kws = {"gel": {}, "mixed": {"materials": mats}}
+    walls = walls_in_turns(lambda tag: run_corpus_chain(
+        bench_chain(), clips, return_audio=False, **kws[tag]), "gel", "mixed")
+    ratio = sum(walls["mixed"]) / sum(walls["gel"])
+    print(f"run_corpus_chain B={b}, materials arange(B) % 5: {wall:.4f} s "
+          f"warm with audio ({b * clips.shape[-1] / SR / wall:.1f} "
+          f"audio-s/s), {NUM_BLOCKS} launches; scoring only (return_audio="
+          f"False) in turns gel, mixed, mixed, gel: mixed {walls['mixed']} s"
+          f", gel {walls['gel']} s: {ratio:.4f}x (JAX's bar 1.3x)")
+    t0 = time.perf_counter()
+    depth = MIXED_CHECK_BLOCKS * n
+    sub = clips[:CHECK_CLIPS, :, :depth]
+    out_a, ms_a, _ = run_corpus_chain(bench_chain(), sub, use_kernel="always",
+                                      materials=mats[:CHECK_CLIPS])
+    out_n, ms_n, _ = run_corpus_chain(bench_chain(), sub, use_kernel="never",
+                                      materials=mats[:CHECK_CLIPS])
+    db = residual_dbfs(out_a, out_n)
+    ds = max_diff(ms_a[-1]["score"], ms_n[-1]["score"])
+    same = torch.equal(out[:CHECK_CLIPS, :, :depth], out_a)
+    print(f"mixed chain: always vs never on {CHECK_CLIPS} clips x "
+          f"{MIXED_CHECK_BLOCKS} blocks: audio {db:.1f} dBFS, last-block "
+          f"scores {ds:.3g}; the corpus run's first clips equal: {same} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if db > -100.0 or ds > 1e-3 or not same:
+        raise AssertionError("mixed chain corpus disagrees with the "
+                             "executor or with itself")
+    del out, clips
+    # the per-clip constant rows the mixed corpus builds once: a ParamRows
+    # of the sorted chain's params and its table on the card
+    order = sk.MaterialOrder(torch.from_numpy(mats))
+    sorted_chain = traced_chain(order.mode.numpy())
+    rows_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        ck.ParamRows(sorted_chain, sorted_chain.params,
+                     len(order.take)).table(device)
+        torch.cuda.synchronize()
+        rows_s.append(time.perf_counter() - t0)
+    print(f"the mixed corpus's per-clip constant rows ({len(order.take)} "
+          f"clips, ParamRows and its table on the card) built in {rows_s} s")
+
+    # the kernels alone: mixed against gel's static launch, in turns
+    haas = int(wid.delay_samples(bench_chain().params[4]["haasMs"], SR))
+    p_wood = Plugin("texture", SR, CHANNELS, n).with_static(material=2)
+    wood_delay = float(tex.material_consts(2, tex.common_consts(
+        p_wood.full_params(p_wood.default_params()), SR, 2)[1], SR,
+        tex.waveguide_size(SR))["delay_samp"])
+    p_plastic = Plugin("texture", SR, CHANNELS, n).with_static(material=3)
+    plastic_delay = float(tex.material_consts(3, tex.common_consts(
+        p_plastic.full_params(p_plastic.default_params()), SR, 3)[1], SR,
+        tex.waveguide_size(SR))["delay_samp"])
+    delays = {2: wood_delay, 3: plastic_delay}
+    chain_by, tex_by = {}, {}
+    for bt in STAGE_TIMED_BATCHES:
+        order = sk.MaterialOrder(torch.from_numpy(np.arange(bt) % 5))
+        xb = make_clicks(bt, CHANNELS, n, device, seed=33)
+        _kc, mixed = kernel_launcher(traced_chain(order.mode.numpy()),
+                                     len(order.take), order.clips(xb))
+        _kc, gel_l = kernel_launcher(Chain(CHAIN, SR, CHANNELS, n), bt, xb)
+        t_gel, t_mix = [], []
+        for _ in range(2):
+            t_gel.append(kernel_ms(gel_l, 10))
+            t_mix.append(kernel_ms(mixed, 10))
+        counts = mixed_counts(np.arange(bt) % 5)
+        bms, bby = mixed_bound(lambda nb, m: chain_work(
+            nb, CHANNELS, n, m, delays.get(m, 0.0), haas), counts)
+        chain_by[bt] = {"ms": min(t_mix), "gel_ms": min(t_gel),
+                        "ratio": min(t_mix) / min(t_gel), "bound_ms": bms,
+                        "bound_by": bby, "clips_run": len(order.take)}
+        print(f"mixed chain kernel alone at B={bt} ({len(order.take)} clips "
+              f"with the padding): {min(t_mix):.4f} ms per block, gel's "
+              f"{min(t_gel):.4f} ms in turns, {min(t_mix) / min(t_gel):.3f}x; "
+              f"bound {bms:.4f} ms ({bby})")
+        xt = make_batch(bt, CHANNELS, n, device, seed=41)
+
+        def tex_launch(mode_, bb, xx):
+            pl = Plugin("texture", SR, CHANNELS, n)
+            pp = pl.full_params(pl.default_params())
+            pp = dict(pp, material=mode_.float()) if not isinstance(
+                mode_, int) else dict(pp, material=mode_)
+            st_ = pl.init_state((bb,), device)
+            bufs = sk.tex_cuda_buffers(
+                xx, sk.texture_kernel_state(st_["dsp"], mode_),
+                sk.pack_lane(st_["analyzer"], bb), mode_)
+            return lambda: sk.tex_cuda_launch(bufs, pp, SR, mode_)
+        tm_l = tex_launch(order.mode, len(order.take), order.clips(xt))
+        tg_l = tex_launch(0, bt, xt)
+        t_gel, t_mix = [], []
+        for _ in range(2):
+            t_gel.append(kernel_ms(tg_l, 20))
+            t_mix.append(kernel_ms(tm_l, 20))
+        bms, bby = mixed_bound(lambda nb, m: texture_work(
+            nb, CHANNELS, n, m, delays.get(m, 0.0)), counts)
+        tex_by[bt] = {"ms": min(t_mix), "gel_ms": min(t_gel),
+                      "ratio": min(t_mix) / min(t_gel), "bound_ms": bms,
+                      "bound_by": bby, "clips_run": len(order.take)}
+        print(f"mixed texture kernel alone at B={bt}: {min(t_mix):.4f} ms "
+              f"per block, gel's {min(t_gel):.4f} ms in turns, "
+              f"{min(t_mix) / min(t_gel):.3f}x; bound {bms:.4f} ms ({bby})")
+    chain_geo = show_geometry("mixed chain kernel",
+                              ck.chain_mixed_geometry(n, device),
+                              "chain_kernel_mixed")
+    tex_geo = show_geometry("mixed texture kernel (all five materials)",
+                            sk.texture_mixed_geometry(range(5), n, 2, device),
+                            "texture_stage_mixedILi2E")
+
+    # texture corpus scoring with a material per clip: the mixed stage kernel
+    tb = BATCH
+    tmats = np.arange(tb) % 5
+    tclips = make_batch(tb, CHANNELS, NUM_BLOCKS * n, device, seed=17)
+    tplug = Plugin("texture", SR, CHANNELS, n).with_traced("material")
+    tparams = dict(tplug.default_params(),
+                   material=torch.as_tensor(tmats, dtype=torch.float32))
+    run_corpus(tplug, tparams, tclips)                            # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    tout, tlast, _tagg = run_corpus(tplug, tparams, tclips)
+    torch.cuda.synchronize()
+    twall = time.perf_counter() - t0
+    tlaunches = stage_steps()["texture"].launches
+    other = other_launches(stage_steps()["texture"])
+    if tlaunches != NUM_BLOCKS or other:
+        raise AssertionError(f"mixed texture corpus: {tlaunches} launches "
+                             f"(and {other} of another kernel)")
+    check_corpus_outputs(tout, tclips, tlast)
+    t0 = time.perf_counter()
+    depth = MIXED_TEX_CHECK_BLOCKS * n
+    sub = tclips[:CHECK_CLIPS, :, :depth]
+    sub_p = dict(tparams, material=tparams["material"][:CHECK_CLIPS])
+    out_n, last_n, _ = run_corpus(tplug, sub_p, sub, use_kernel="never")
+    out_k, last_k, _ = run_corpus(tplug, sub_p, sub, use_kernel="always")
+    db = residual_dbfs(out_k, out_n)
+    ds = max_diff(last_k["score"], last_n["score"])
+    same = torch.equal(tout[:CHECK_CLIPS, :, :depth], out_k)
+    print(f"run_corpus texture B={tb}, materials arange(B) % 5: {twall:.4f} s "
+          f"warm ({tb * tclips.shape[-1] / SR / twall:.1f} audio-s/s), "
+          f"{tlaunches} launches; always vs never on {CHECK_CLIPS} clips x "
+          f"{MIXED_TEX_CHECK_BLOCKS} blocks: audio {db:.1f} dBFS, scores "
+          f"{ds:.3g}, the corpus run's first clips equal: {same} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if db > -100.0 or ds > 1e-3 or not same:
+        raise AssertionError("mixed texture corpus disagrees with "
+                             "batched_run or with itself")
+    print(f"phase 4f: {time.perf_counter() - t_phase:.1f} s")
+    return {
+        "chain": {"launches": launches, "corpus_wall_s": wall,
+                  "scoring_walls_s": walls["mixed"],
+                  "gel_scoring_walls_s": walls["gel"],
+                  "corpus_ratio": ratio, "rows_build_s": rows_s,
+                  "max_abs_err": err, "ms_by_batch": chain_by,
+                  "geometry": chain_geo},
+        "texture": {"launches": tlaunches, "corpus_wall_s": twall,
+                    "max_abs_err": tex_err, "ms_by_batch": tex_by,
+                    "geometry": tex_geo},
+    }
+
+
+def phase_automation(device):
+    """4g: per-block automation. On the chain kernel (a constant row per
+    block): the automated stream against its plain version at B = 100 over
+    three blocks (audio, every state leaf, both lanes bit-equal), then
+    run_corpus_chain(automation=) at full width (B = 8192, 94 blocks): its
+    launches, its first clips against the never-path, its wall and the
+    unautomated one's in turns, with the host work automation adds (the
+    table build, the finalize with per-block params); the automated launch
+    alone (each block's row in turn) beside the unautomated one, in turns.
+    On a stage kernel: run_corpus(punch, automation=) at B = 4096 (each
+    launch takes its block's constants), its launches, its first clips
+    against the never-path, its wall and the unautomated one's in turns."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.parallel.corpus import run_corpus, run_corpus_chain
+    from juicy_tpu_torch.runtime.chain_fused import chain_automation
+    from juicy_tpu_torch.runtime.plugin import Plugin
+    from juicy_tpu_torch.runtime.stream import automation_curve
+
+    t_phase = time.perf_counter()
+    n = BLOCK
+    x = make_clicks(RAGGED_BATCH, CHANNELS, 3 * n, device, seed=47,
+                    period=2 * n)
+    chain = bench_chain()
+    st0 = chain.init_state((RAGGED_BATCH,), device)
+    auto3 = {s: {k: automation_curve(v, 3) for k, v in c.items()}
+             for s, c in AUTOMATION.items()}
+    got = raw_chain("cuda", chain, st0, x, auto3)
+    want = raw_chain("plain", chain, st0, x, auto3)
+    tensors_equal("automated chain", got, want)
+    flat = raw_chain("cuda", chain, st0, x)
+    if torch.equal(got[0], flat[0]):
+        raise AssertionError("automation did not change the render")
+    print(f"automated chain kernel 3 blocks at B={RAGGED_BATCH}: audio, "
+          f"every state leaf and both lanes bit-equal to the plain version")
+
+    b = CHAIN_CORPUS_BATCH
+    auto = {s: {k: automation_curve(v, NUM_BLOCKS) for k, v in c.items()}
+            for s, c in AUTOMATION.items()}
+    clips = make_clicks(b, CHANNELS, NUM_BLOCKS * n, device, seed=31)
+    run_corpus_chain(chain, clips, automation=auto)               # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, ms, agg = run_corpus_chain(chain, clips, automation=auto)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, other = chain_step().launches, other_launches(chain_step())
+    if launches != NUM_BLOCKS or other:
+        raise AssertionError(f"automated chain corpus: {launches} launches "
+                             f"(and {other} of another kernel)")
+    check_corpus_outputs(out, clips, ms[-1])
+    kws = {"flat": {}, "automated": {"automation": auto}}
+    walls = walls_in_turns(lambda tag: run_corpus_chain(chain, clips,
+                                                        **kws[tag]),
+                           "flat", "automated")
+    print(f"run_corpus_chain B={b} with {sum(map(len, AUTOMATION.values()))} "
+          f"params automated: {wall:.4f} s warm "
+          f"({b * clips.shape[-1] / SR / wall:.1f} audio-s/s), {launches} "
+          f"launches; in turns flat, automated, automated, flat: automated "
+          f"{walls['automated']} s, unautomated {walls['flat']} s")
+    # the host work automation adds to the corpus: the curves' table, and
+    # the finalize with each automated param a [nb, 1] column
+    curves = chain_automation(chain, auto, NUM_BLOCKS)
+    st = chain.init_state((b,), device)
+    _o, _d, fin, acc, fit = ck._run_cuda(chain, st, clips, False)
+    an0 = [s_["analyzer"] for s_ in st]
+    fin_params = {"flat": None,
+                  "automated": ck._automated_params(chain, None, curves,
+                                                    device)}
+    fin_walls = walls_in_turns(lambda tag: ck.finalize_stream(
+        chain, an0, fin, acc, fit, fin_params[tag]), "flat", "automated")
+    del _o, _d, fin, acc, fit
+    t0 = time.perf_counter()
+    depth = AUTO_CHECK_BLOCKS * n
+    sub = clips[:CHECK_CLIPS, :, :depth]
+    auto_d = {s: {k: v[:AUTO_CHECK_BLOCKS] for k, v in c.items()}
+              for s, c in auto.items()}
+    out_a, ms_a, _ = run_corpus_chain(chain, sub, use_kernel="always",
+                                      automation=auto_d)
+    out_n, ms_n, _ = run_corpus_chain(chain, sub, use_kernel="never",
+                                      automation=auto_d)
+    db = residual_dbfs(out_a, out_n)
+    ds = max_diff(ms_a[-1]["score"], ms_n[-1]["score"])
+    same = torch.equal(out[:CHECK_CLIPS, :, :depth], out_a)
+    print(f"automated chain: always vs never on {CHECK_CLIPS} clips x "
+          f"{AUTO_CHECK_BLOCKS} blocks: audio {db:.1f} dBFS, scores {ds:.3g}"
+          f"; the corpus run's first clips equal: {same} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if db > -100.0 or ds > 1e-3 or not same:
+        raise AssertionError("automated chain corpus disagrees with the "
+                             "executor or with itself")
+    del out, clips
+
+    xb = make_clicks(b, CHANNELS, n, device, seed=33)
+    kc, flat_l = kernel_launcher(chain, b, xb)
+    t0 = time.perf_counter()
+    tables = ck.block_tables(kc, chain, chain_automation(chain, auto,
+                                                         NUM_BLOCKS),
+                             NUM_BLOCKS)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    _kc, auto_l = kernel_launcher(chain, b, xb, tables)
+    t_flat, t_auto = [], []
+    for _ in range(2):
+        t_flat.append(kernel_ms(flat_l, 20))
+        t_auto.append(kernel_ms(auto_l, 20))
+    print(f"automated chain kernel alone at B={b}: {min(t_auto):.4f} ms per "
+          f"block (a row per block), unautomated {min(t_flat):.4f} ms in "
+          f"turns; the [{NUM_BLOCKS}, {ck.N_CONSTS}] table built in "
+          f"{table_s:.4f} s; finalize_stream over the corpus in turns: "
+          f"automated {fin_walls['automated']} s, unautomated "
+          f"{fin_walls['flat']} s")
+    del xb, kc, _kc, tables
+
+    # a stage kernel with automation: punch, BASELINE.json config #3
+    punch = Plugin("punch", SR, CHANNELS, n)
+    p_params = punch.preset(PUNCH_PRESET)
+    p_auto = {k: automation_curve(v, NUM_BLOCKS)
+              for k, v in PUNCH_AUTOMATION.items()}
+    p_clips = make_clicks(BATCH, CHANNELS, NUM_BLOCKS * n, device, seed=23)
+    p_launches, p_wall = corpus_run("punch automated", punch, p_params,
+                                    p_clips, stage_steps()["punch"], p_auto)
+    kws = {"flat": {}, "automated": {"automation": p_auto}}
+    p_walls = walls_in_turns(lambda tag: run_corpus(punch, p_params, p_clips,
+                                                    **kws[tag]),
+                             "flat", "automated")
+    print(f"run_corpus punch B={BATCH} with {len(PUNCH_AUTOMATION)} params "
+          f"automated, in turns flat, automated, automated, flat: automated "
+          f"{p_walls['automated']} s, unautomated {p_walls['flat']} s")
+    print(f"phase 4g: {time.perf_counter() - t_phase:.1f} s")
+    return {"chain": {
+        "launches": launches, "corpus_wall_s": wall,
+        "corpus_walls_s": walls["automated"],
+        "unautomated_walls_s": walls["flat"], "ms": min(t_auto),
+        "unautomated_ms": min(t_flat), "table_build_s": table_s,
+        "finalize_walls_s": fin_walls["automated"],
+        "unautomated_finalize_walls_s": fin_walls["flat"],
+        "max_abs_err": max_diff(got[0], want[0])},
+        "punch": {"launches": p_launches, "corpus_wall_s": p_wall,
+                  "corpus_walls_s": p_walls["automated"],
+                  "unautomated_walls_s": p_walls["flat"]}}
+
+
 def phase_texture_corpus(device):
     """gel, metal and wood at full width; each run read on its own."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
@@ -1099,7 +1646,7 @@ def phase_texture_corpus(device):
         plugin = Plugin("texture", SR, CHANNELS, BLOCK).with_static(material=mode)
         launches[MATERIALS[mode]] = corpus_run(
             f"texture {MATERIALS[mode]}", plugin, plugin.default_params(),
-            clips, sk.texture_stage_step)
+            clips, sk.texture_stage_step)[0]
     return launches
 
 
@@ -1488,6 +2035,8 @@ def main():
     analyzer = phase_analyze_fused(device)
     sat_fused = phase_saturator_step_fused(device, plugin, params)
     chain_corpus = phase_chain_corpus(device)
+    mixed = phase_mixed_materials(device)
+    automation = phase_automation(device)
     sat_launches = phase_corpus(device, plugin, params)
     tex_launches = phase_texture_corpus(device)
     pm_launches = phase_punch_motion_corpus(device)
@@ -1515,6 +2064,7 @@ def main():
         "timed_material": MATERIALS[REFERENCE_MATERIAL],
         "launches_by_material": tex_launches,
         "by_material": tex_timing,
+        "by_material_mix": mixed["texture"],
     }, {
         "name": "punch_stage",
         "route": "cuda",
@@ -1522,6 +2072,7 @@ def main():
         "replaces": "juicy_tpu/kernels/stage_kernels.py:331",
         "launches": pm_launches["punch"],
         **pm_timing["punch"],
+        "automation": automation["punch"],
     }, {
         "name": "motion_stage",
         "route": "cuda",
@@ -1543,6 +2094,8 @@ def main():
         "ms_by_batch": chain_corpus["ms_by_batch"],
         "corpus_wall_s": chain_corpus["wall"],
         "by_material_b4096": chain_timing,
+        "by_material_mix": mixed["chain"],
+        "automation": automation["chain"],
         "serve": serve,
     }, {
         "name": "analyzer",

@@ -7,12 +7,13 @@ kernels as CUDA C++ written for Hopper (``csrc/``, built at first use by
 
 Ported so far (ROADMAP.md lists the rest): the drift-pinned numerics and the
 LCG noise, the analyzer, ``Plugin`` and ``Chain`` with all seven processors
-(texture with a static material), the punch, saturator, texture and motion
-stage kernels and ``run_corpus``, the chain kernel, the block-major chain
-executor and ``run_corpus_chain``, serving (``StreamServer``, on the chain
-kernel with per-slot parameter rows), ``analyze_fused`` and
-``saturator_step_fused``: every TPU kernel of the JAX package has its
-counterpart. Every entry point runs on the CUDA card unless the caller
+(texture's material static or one per clip), the punch, saturator, texture
+and motion stage kernels and ``run_corpus``, the chain kernel, the
+block-major chain executor and ``run_corpus_chain`` (with per-block
+automation and per-clip materials), ``run_grouped``, serving
+(``StreamServer``, on the chain kernel with per-slot parameter rows),
+``analyze_fused`` and ``saturator_step_fused``: every TPU kernel of the JAX
+package has its counterpart. Every entry point runs on the CUDA card unless the caller
 passes another ``device`` (``runtime/device.py``); ``device="cpu"`` is the
 plain route.
 """
@@ -27,6 +28,7 @@ from juicy_tpu_torch.kernels.stage_kernels import (
 from juicy_tpu_torch.models import get_processor
 from juicy_tpu_torch.parallel.corpus import (corpus_metrics, run_corpus,
                                              run_corpus_chain)
+from juicy_tpu_torch.parallel.grouping import run_grouped
 from juicy_tpu_torch.runtime.plugin import Chain, Plugin
 from juicy_tpu_torch.runtime.serve import StreamServer
 
@@ -34,7 +36,7 @@ __all__ = ["Chain", "Plugin", "StreamServer", "analyze", "analyze_fused",
            "analyzer_init", "corpus_metrics",
            "get_processor", "motion_stage_step", "motion_stage_step_plain",
            "punch_stage_step", "punch_stage_step_plain", "run_corpus",
-           "run_corpus_chain",
+           "run_corpus_chain", "run_grouped",
            "saturator_stage_step", "saturator_stage_step_plain",
            "saturator_step_fused",
            "texture_stage_step", "texture_stage_step_plain"]

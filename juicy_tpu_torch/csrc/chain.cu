@@ -2,7 +2,8 @@
 // saturator -> texture -> motion -> width -> cohere -> infer) with its 14
 // analyzer lanes, for one block of every clip of a stereo batch, in one
 // launch, for a texture material fixed per launch (0 gel, 1 metal, 2 wood,
-// 3 plastic, 4 flesh).
+// 3 plastic, 4 flesh) or, in chain_kernel_mixed, one material per CTA of
+// 32 clips (the host sorts a mixed corpus into such runs).
 //
 // Replaces the TPU kernel juicy_tpu/kernels/chain_kernel.py::_mono_machinery
 // (the _mono_kernel pallas_call = _front_kernel + _back_kernel), which
@@ -766,10 +767,31 @@ __device__ __forceinline__ void run_analyzer(const ChainArgs& a, const Ctx& c, i
                c.b, c.B);
 }
 
-// One block of 32 clips through the chain; see the file comment.
+// Texture's warp for material MODE, or for MODE < 0 the material `mode`
+// read at run time: only these two warps' code differs between materials,
+// so two CTAs of different materials on one SM share every other role's
+// instructions.
 template <int MODE>
-__global__ void __launch_bounds__(kThreads, 2)
-    chain_kernel(const __grid_constant__ ChainArgs a) {
+__device__ __forceinline__ void run_texture_of(const ChainArgs& a,
+                                               const Ctx& c, int ch,
+                                               unsigned rng0, int mode) {
+  if constexpr (MODE >= 0) {
+    run_texture<MODE>(a, c, ch, rng0);
+  } else {
+    switch (mode) {
+      case 0: run_texture<0>(a, c, ch, rng0); break;
+      case 1: run_texture<1>(a, c, ch, rng0); break;
+      case 2: run_texture<2>(a, c, ch, rng0); break;
+      case 3: run_texture<3>(a, c, ch, rng0); break;
+      default: run_texture<4>(a, c, ch, rng0); break;
+    }
+  }
+}
+
+// One block of 32 clips through the chain, texture material MODE (or, for
+// MODE < 0, `mode`); see the file comment.
+template <int MODE>
+__device__ __forceinline__ void chain_cta(const ChainArgs& a, int mode) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = layout(a.N);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -807,9 +829,9 @@ __global__ void __launch_bounds__(kThreads, 2)
   switch (warp) {
     case kWarpP0: case kWarpP1: run_punch(a, c, warp - kWarpP0); break;
     case kWarpS0: case kWarpS1: run_saturator(a, c, warp - kWarpS0); break;
-    case kWarpT0: run_texture<MODE>(a, c, 0, rng0); break;
+    case kWarpT0: run_texture_of<MODE>(a, c, 0, rng0, mode); break;
     case kWarpT1:
-      run_texture<MODE>(a, c, 1, rng0);
+      run_texture_of<MODE>(a, c, 1, rng0, mode);
       run_motion_wet(a, c);
       break;
     case kWarpM: run_motion(a, c); break;
@@ -821,13 +843,36 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// One static material for the whole launch.
 template <int MODE>
-int prepare(size_t smem) {
+__global__ void __launch_bounds__(kThreads, 2)
+    chain_kernel(const __grid_constant__ ChainArgs a) {
+  chain_cta<MODE>(a, MODE);
+}
+
+// A material per CTA: CTA i runs material cta_mode[i] (its 32 clips share
+// it; their constant rows, cstride 105, hold that material's constants).
+// The two texture warps switch once, before their loop, into that
+// material's run_texture; every other role is the one copy all materials
+// share (the layout does not depend on the material). One body per
+// material measured 1.6x slower than either material alone when CTAs of
+// two materials shared an SM (PERF.md). `mask` has bit m set for each
+// material the launch holds.
+__global__ void __launch_bounds__(kThreads, 2)
+    chain_kernel_mixed(const __grid_constant__ ChainArgs a,
+                       const int* __restrict__ cta_mode, int mask) {
+  const int mode = cta_mode[blockIdx.x];
+  if (mode < 0 || mode > 4 || !((mask >> mode) & 1)) __trap();
+  chain_cta<-1>(a, mode);
+}
+
+template <typename K>
+int prepare(K kernel, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      chain_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(chain_kernel<MODE>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   return static_cast<int>(err);
@@ -836,26 +881,36 @@ int prepare(size_t smem) {
 template <int MODE>
 int launch(const ChainArgs& a, cudaStream_t s) {
   const size_t smem = layout(a.N).bytes;
-  const int err = prepare<MODE>(smem);
+  const int err = prepare(chain_kernel<MODE>, smem);
   if (err != 0) return err;
   const int blocks = (a.B + kClips - 1) / kClips;
   chain_kernel<MODE><<<blocks, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+inline int launch_mixed(const ChainArgs& a, const int* cta_mode, int mask,
+                        cudaStream_t s) {
+  const size_t smem = layout(a.N).bytes;
+  const int err = prepare(chain_kernel_mixed, smem);
+  if (err != 0) return err;
+  const int blocks = (a.B + kClips - 1) / kClips;
+  chain_kernel_mixed<<<blocks, kThreads, smem, s>>>(a, cta_mode, mask);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // clips and warps per CTA, threads, shared memory bytes, resident CTAs per
 // SM, registers and local (spill) bytes per thread, chunk samples
-template <int MODE>
-int geometry(int N, int* g) {
+template <typename K>
+int geometry(K kernel, int N, int* g) {
   const size_t smem = layout(N).bytes;
-  int err = prepare<MODE>(smem);
+  int err = prepare(kernel, smem);
   cudaFuncAttributes attr;
   if (err == 0)
-    err = static_cast<int>(cudaFuncGetAttributes(&attr, chain_kernel<MODE>));
+    err = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
   int ctas = 0;
   if (err == 0)
     err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, chain_kernel<MODE>, kThreads, smem));
+        &ctas, kernel, kThreads, smem));
   if (err != 0) return err;
   const int v[8] = {kClips, kWarps, kThreads, static_cast<int>(smem), ctas,
                     attr.numRegs, static_cast<int>(attr.localSizeBytes),
@@ -866,6 +921,41 @@ int geometry(int N, int* g) {
 
 }  // namespace juicy
 
+#define JUICY_CHAIN_PARAMS                                                    \
+  const float *x, float *out, float *s0, float *s1, const float *consts,     \
+      int cstride, int n_consts, float *punch_env, float *sat_tone,          \
+      float *tex_dsp, float *tex_mat, unsigned *tex_rng, float *tex_ring,    \
+      float *mot_mono, int *mot_cd, unsigned *mot_rng, float *mot_chan,      \
+      float *haas, float *co_mono, float *co_tail, float *co_fit,            \
+      const float *lane_prev, float *fin, float *acc, int B, int N
+#define JUICY_CHAIN_TAIL                                                      \
+  int L, int tex_widx, int D, int haas_pos, unsigned jump_a, unsigned jump_b, \
+      int mot_cooldown, int narrow
+
+// The launch's arguments checked (`wave`: a wood or plastic CTA is in it)
+// and packed; false when one is out of range.
+static bool chain_args(juicy::ChainArgs& a, bool wave, JUICY_CHAIN_PARAMS,
+                       JUICY_CHAIN_TAIL) {
+  if (n_consts != juicy::kChainConsts || cstride < 0 || B <= 0 || N <= 0 ||
+      D <= 0 || haas_pos < 0 || haas_pos >= D ||
+      (wave && (tex_ring == nullptr || L < juicy::kChunk || tex_widx < 0 ||
+                tex_widx >= L)))
+    return false;
+  a = juicy::ChainArgs{x,        out,      s0,       s1,       consts,
+                       cstride,  punch_env, sat_tone, tex_dsp, tex_mat,
+                       tex_rng,  tex_ring, mot_mono, mot_cd,   mot_rng,
+                       mot_chan, haas,     co_mono,  co_tail,  co_fit,
+                       lane_prev, fin,     acc,      B,        N,
+                       L,        tex_widx, D,        haas_pos, jump_a,
+                       jump_b,   mot_cooldown, narrow};
+  return true;
+}
+#define JUICY_CHAIN_ARGS                                                      \
+  x, out, s0, s1, consts, cstride, n_consts, punch_env, sat_tone, tex_dsp,   \
+      tex_mat, tex_rng, tex_ring, mot_mono, mot_cd, mot_rng, mot_chan, haas, \
+      co_mono, co_tail, co_fit, lane_prev, fin, acc, B, N, L, tex_widx, D,   \
+      haas_pos, jump_a, jump_b, mot_cooldown, narrow
+
 extern "C" {
 
 // Launches the chain kernel for texture material `mode` on `stream` and
@@ -874,30 +964,11 @@ extern "C" {
 // [N, 2, B] streams each); `tex_ring` may be null for modes 0, 1, 4.
 // `consts` is a device array of rows of n_consts floats (chain_constants
 // order), clip b reading the row at b * cstride.
-int juicy_chain_block(const float* x, float* out, float* s0, float* s1,
-                      const float* consts, int cstride, int n_consts,
-                      float* punch_env, float* sat_tone, float* tex_dsp,
-                      float* tex_mat, unsigned* tex_rng, float* tex_ring,
-                      float* mot_mono, int* mot_cd, unsigned* mot_rng,
-                      float* mot_chan, float* haas, float* co_mono,
-                      float* co_tail, float* co_fit, const float* lane_prev,
-                      float* fin, float* acc, int B, int N, int mode, int L,
-                      int tex_widx, int D, int haas_pos, unsigned jump_a,
-                      unsigned jump_b, int mot_cooldown, int narrow,
+int juicy_chain_block(JUICY_CHAIN_PARAMS, int mode, JUICY_CHAIN_TAIL,
                       void* stream) {
-  const bool wave = mode == 2 || mode == 3;
-  if (n_consts != juicy::kChainConsts || cstride < 0 || B <= 0 || N <= 0 ||
-      D <= 0 || haas_pos < 0 || haas_pos >= D ||
-      (wave && (tex_ring == nullptr || L < juicy::kChunk || tex_widx < 0 ||
-                tex_widx >= L)))
+  juicy::ChainArgs a;
+  if (!chain_args(a, mode == 2 || mode == 3, JUICY_CHAIN_ARGS))
     return static_cast<int>(cudaErrorInvalidValue);
-  const juicy::ChainArgs a{x,        out,      s0,       s1,       consts,
-                           cstride,  punch_env, sat_tone, tex_dsp, tex_mat,
-                           tex_rng,  tex_ring, mot_mono, mot_cd,   mot_rng,
-                           mot_chan, haas,     co_mono,  co_tail,  co_fit,
-                           lane_prev, fin,     acc,      B,        N,
-                           L,        tex_widx, D,        haas_pos, jump_a,
-                           jump_b,   mot_cooldown, narrow};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
     case 0: return juicy::launch<0>(a, s);
@@ -909,18 +980,40 @@ int juicy_chain_block(const float* x, float* out, float* s0, float* s1,
   }
 }
 
+// The mixed-material launch: `cta_mode` is a device array of one material
+// per 32 clips (ceil(B / 32) ints); `mode_mask` has bit m set for each
+// material present. Every CTA's clips must share their material, and each
+// clip's constant row (cstride 105) holds its material's constants.
+int juicy_chain_block_mixed(JUICY_CHAIN_PARAMS, int mode_mask,
+                            JUICY_CHAIN_TAIL, const int* cta_mode,
+                            void* stream) {
+  juicy::ChainArgs a;
+  if (cta_mode == nullptr || mode_mask <= 0 || mode_mask >= 32 ||
+      !chain_args(a, (mode_mask & 0b01100) != 0, JUICY_CHAIN_ARGS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return juicy::launch_mixed(a, cta_mode, mode_mask,
+                             static_cast<cudaStream_t>(stream));
+}
+
 // The chain kernel's geometry for material `mode` and block size N into
 // g[8] (juicy::geometry's order); returns a CUDA error code.
 int juicy_chain_geometry(int mode, int N, int* g) {
   if (N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
-    case 0: return juicy::geometry<0>(N, g);
-    case 1: return juicy::geometry<1>(N, g);
-    case 2: return juicy::geometry<2>(N, g);
-    case 3: return juicy::geometry<3>(N, g);
-    case 4: return juicy::geometry<4>(N, g);
+    case 0: return juicy::geometry(juicy::chain_kernel<0>, N, g);
+    case 1: return juicy::geometry(juicy::chain_kernel<1>, N, g);
+    case 2: return juicy::geometry(juicy::chain_kernel<2>, N, g);
+    case 3: return juicy::geometry(juicy::chain_kernel<3>, N, g);
+    case 4: return juicy::geometry(juicy::chain_kernel<4>, N, g);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The mixed kernel's (a material per CTA) geometry for block size N, as
+// juicy_chain_geometry's.
+int juicy_chain_mixed_geometry(int N, int* g) {
+  if (N <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return juicy::geometry(juicy::chain_kernel_mixed, N, g);
 }
 
 }  // extern "C"

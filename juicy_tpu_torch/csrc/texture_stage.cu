@@ -1,6 +1,7 @@
 // Texture full-stage kernel for Hopper (sm_90a): pre-analyze + texture +
 // post-analyze of one block, for every clip of a batch, in one launch, for a
-// material fixed per launch (0 gel, 1 metal, 2 wood, 3 plastic, 4 flesh).
+// material fixed per launch (0 gel, 1 metal, 2 wood, 3 plastic, 4 flesh)
+// or, in texture_stage_mixed, one material per CTA of 32 clips.
 //
 // Replaces the TPU kernel juicy_tpu/kernels/stage_kernels.py
 // ::texture_stage_step (_texture_kernel with make_tex_sample and
@@ -166,10 +167,9 @@ __host__ __device__ inline Layout layout(int N) {
   return l;
 }
 
-template <int MODE>
-struct Ctx {
-  static constexpr int kSlotsFB = fb_slots(MODE);
-  static constexpr int kFieldsFB = fb_fields(MODE);
+// What every role knows of its lane; Ctx<MODE> adds the FB ring's shape,
+// which depends on the material.
+struct CtxBase {
   int b, bl;       // the clip, the clip clamped into the batch
   bool live;       // b < B: only live lanes store
   size_t sB;
@@ -184,14 +184,21 @@ struct Ctx {
     return bars + set * nc + j;
   }
   __device__ uint64_t* out_bar() const { return bar(kBarOut); }
-  // chunk j's slot of channel ch; field f of sample i at [(f * kChunk + i) * 32]
-  __device__ float* fb_slot(int j, int ch) const {
-    return fb + ((j % kSlotsFB) * 2 + ch) * kFieldsFB * kChunk * 32;
-  }
+  // field f of sample i of a slot at [(f * kChunk + i) * 32]
   __device__ float* wd_slot(int j, int ch) const {
     return wd + ((j % kSlotsWD) * 2 + ch) * kWdFields * kChunk * 32;
   }
   __device__ int len(int j, int N) const { return min(kChunk, N - j * kChunk); }
+};
+
+template <int MODE>
+struct Ctx : CtxBase {
+  static constexpr int kSlotsFB = fb_slots(MODE);
+  static constexpr int kFieldsFB = fb_fields(MODE);
+  // chunk j's slot of channel ch
+  __device__ float* fb_slot(int j, int ch) const {
+    return fb + ((j % kSlotsFB) * 2 + ch) * kFieldsFB * kChunk * 32;
+  }
 };
 
 __device__ __forceinline__ float& at(float* slot, int f, int i) {
@@ -199,8 +206,8 @@ __device__ __forceinline__ float& at(float* slot, int f, int i) {
 }
 
 // ---- V, L and E: one part of both lanes each (stage_lane.cuh)
-template <int C, int MODE, int PART>
-__device__ void run_lane(const Args& a, const Ctx<MODE>& c) {
+template <int C, int PART>
+__device__ void run_lane(const Args& a, const CtxBase& c) {
   stage_lane::run<PART>(
       pipe::chunk_reader<2>(a.x, C, c.sB, c.bl, 0, a.N, nullptr, c.stage),
       pipe::chunk_reader<2>(a.out, C, c.sB, c.bl, 0, a.N, c.out_bar(),
@@ -369,8 +376,8 @@ __device__ void run_wet(const Args& a, const Ctx<MODE>& c, int ch) {
 
 // ---- D: the DC blocker and the limiter of channel ch, behind the helpers'
 // auto-gain; the output to device memory
-template <int C, int MODE>
-__device__ void run_limit(const Args& a, const Ctx<MODE>& c, int ch) {
+template <int C>
+__device__ void run_limit(const Args& a, const CtxBase& c, int ch) {
   const TexConsts& k = a.k;
   TexChan s{};
   s.dc_in = a.dsp_in[(6 * c.sB + c.bl) * C + ch];
@@ -438,14 +445,13 @@ __device__ void run_helper(const Args& a, const Ctx<MODE>& c, int h) {
   }
 }
 
-// One block of 32 clips; see the file comment.
+// The CTA's context for material MODE, its barriers initialized.
 template <int C, int MODE>
-__global__ void __launch_bounds__(kThreads, 2)
-    texture_stage_kernel(const __grid_constant__ Args a) {
+__device__ __forceinline__ CtxBase texture_ctx(const Args& a) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout l = layout<MODE>(a.N);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  Ctx<MODE> c;
+  CtxBase c;
   c.b = blockIdx.x * kClips + lane;
   c.live = c.b < a.B;
   c.bl = c.live ? c.b : a.B - 1;  // lanes past B run on the last clip
@@ -461,31 +467,117 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int i = threadIdx.x; i < l.bars; i += kThreads)
     pipe::mbar_init(c.bars + i,
                     i < kBarSets * l.nc && by_channel(i / l.nc) ? 32 * C : 32);
-  __syncthreads();
+  return c;
+}
 
+// The roles whose code depends on the material: F, M, W and H.
+template <int C, int MODE>
+__device__ __forceinline__ void material_roles(const Args& a,
+                                               const CtxBase& base,
+                                               int warp) {
+  const Ctx<MODE> c{base};
   switch (warp) {
-    case kWarpV: run_lane<C, MODE, stage_lane::kEnvelopes>(a, c); break;
-    case kWarpL: run_lane<C, MODE, stage_lane::kOnsets>(a, c); break;
-    case kWarpE: run_lane<C, MODE, stage_lane::kEnergy>(a, c); break;
     case kWarpF0: run_front<C, MODE>(a, c, 0); break;
     case kWarpF1: if (C == 2) run_front<C, MODE>(a, c, 1); break;
     case kWarpM0: run_material<C, MODE>(a, c, 0); break;
     case kWarpM1: if (C == 2) run_material<C, MODE>(a, c, 1); break;
     case kWarpW0: run_wet<C, MODE>(a, c, 0); break;
     case kWarpW1: if (C == 2) run_wet<C, MODE>(a, c, 1); break;
-    case kWarpD0: run_limit<C, MODE>(a, c, 0); break;
-    case kWarpD1: if (C == 2) run_limit<C, MODE>(a, c, 1); break;
     default: run_helper<C, MODE>(a, c, warp - kWarpH0); break;
   }
 }
 
+// The roles whose code is the same for every material: V, L and E (the
+// lanes) and D (the DC blocker and limiter, whose constant, dc_r, is the
+// same in every material's row). Returns false for the other warps.
+template <int C>
+__device__ __forceinline__ bool shared_roles(const Args& a, const CtxBase& c,
+                                             int warp) {
+  switch (warp) {
+    case kWarpV: run_lane<C, stage_lane::kEnvelopes>(a, c); return true;
+    case kWarpL: run_lane<C, stage_lane::kOnsets>(a, c); return true;
+    case kWarpE: run_lane<C, stage_lane::kEnergy>(a, c); return true;
+    case kWarpD0: run_limit<C>(a, c, 0); return true;
+    case kWarpD1: if (C == 2) run_limit<C>(a, c, 1); return true;
+    default: return false;
+  }
+}
+
+// One block of 32 clips, material MODE; see the file comment.
 template <int C, int MODE>
-int prepare(size_t smem) {
+__device__ __forceinline__ void texture_cta(const Args& a) {
+  const CtxBase c = texture_ctx<C, MODE>(a);
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  if (!shared_roles<C>(a, c, warp)) material_roles<C, MODE>(a, c, warp);
+}
+
+// One static material for the whole launch.
+template <int C, int MODE>
+__global__ void __launch_bounds__(kThreads, 2)
+    texture_stage_kernel(const __grid_constant__ Args a) {
+  texture_cta<C, MODE>(a);
+}
+
+// A material per CTA: a[m] holds the launch's buffers with material m's
+// constants (all five rows filled), cta_mode one material per 32 clips,
+// mask bit m each material present. Each CTA lays out its shared memory
+// for its material; the material's roles (F, M, W, H) switch once into
+// that material's code, reading a[m] as the static kernel reads its Args;
+// the lanes and D are the one copy every material shares, reading a[0]
+// (the same buffers and lane constants, and dc_r). One body per material
+// measured 1.4-1.6x slower than either material alone when CTAs of two
+// materials shared an SM (PERF.md).
+struct MixedArgs {
+  Args a[5];
+  const int* __restrict__ cta_mode;
+  int mask;
+};
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 2)
+    texture_stage_mixed(const __grid_constant__ MixedArgs m) {
+  const int mode = m.cta_mode[blockIdx.x];
+  if (mode < 0 || mode > 4 || !((m.mask >> mode) & 1)) __trap();
+  CtxBase c;
+  switch (mode) {
+    case 0: c = texture_ctx<C, 0>(m.a[0]); break;
+    case 1: c = texture_ctx<C, 1>(m.a[1]); break;
+    case 2: c = texture_ctx<C, 2>(m.a[2]); break;
+    case 3: c = texture_ctx<C, 3>(m.a[3]); break;
+    default: c = texture_ctx<C, 4>(m.a[4]); break;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  if (shared_roles<C>(m.a[0], c, warp)) return;
+  switch (mode) {
+    case 0: material_roles<C, 0>(m.a[0], c, warp); break;
+    case 1: material_roles<C, 1>(m.a[1], c, warp); break;
+    case 2: material_roles<C, 2>(m.a[2], c, warp); break;
+    case 3: material_roles<C, 3>(m.a[3], c, warp); break;
+    default: material_roles<C, 4>(m.a[4], c, warp); break;
+  }
+}
+
+// The dynamic shared memory of a launch holding the materials of `mask`:
+// the largest that one of them needs.
+inline size_t mixed_smem(int mask, int N) {
+  const size_t b[5] = {layout<0>(N).bytes, layout<1>(N).bytes,
+                       layout<2>(N).bytes, layout<3>(N).bytes,
+                       layout<4>(N).bytes};
+  size_t smem = 0;
+  for (int m = 0; m < 5; ++m)
+    if ((mask >> m) & 1) smem = b[m] > smem ? b[m] : smem;
+  return smem;
+}
+
+template <typename K>
+int prepare(K kernel, size_t smem) {
   cudaError_t err = cudaFuncSetAttribute(
-      texture_stage_kernel<C, MODE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(texture_stage_kernel<C, MODE>,
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                cudaSharedmemCarveoutMaxShared);
   return static_cast<int>(err);
@@ -494,27 +586,34 @@ int prepare(size_t smem) {
 template <int C, int MODE>
 int launch(const Args& a, cudaStream_t s) {
   const size_t smem = layout<MODE>(a.N).bytes;
-  const int err = prepare<C, MODE>(smem);
+  const int err = prepare(texture_stage_kernel<C, MODE>, smem);
   if (err != 0) return err;
   const int blocks = (a.B + kClips - 1) / kClips;
   texture_stage_kernel<C, MODE><<<blocks, kThreads, smem, s>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int C>
+int launch_mixed(const MixedArgs& m, cudaStream_t s) {
+  const size_t smem = mixed_smem(m.mask, m.a[0].N);
+  const int err = prepare(texture_stage_mixed<C>, smem);
+  if (err != 0) return err;
+  const int blocks = (m.a[0].B + kClips - 1) / kClips;
+  texture_stage_mixed<C><<<blocks, kThreads, smem, s>>>(m);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // clips and warps per CTA, threads, shared memory bytes, resident CTAs per
 // SM, registers and local (spill) bytes per thread, chunk samples
-template <int C, int MODE>
-int geometry(int N, int* g) {
-  const size_t smem = layout<MODE>(N).bytes;
-  int err = prepare<C, MODE>(smem);
+template <typename K>
+int geometry(K kernel, size_t smem, int* g) {
+  int err = prepare(kernel, smem);
   cudaFuncAttributes attr;
-  if (err == 0)
-    err = static_cast<int>(
-        cudaFuncGetAttributes(&attr, texture_stage_kernel<C, MODE>));
+  if (err == 0) err = static_cast<int>(cudaFuncGetAttributes(&attr, kernel));
   int ctas = 0;
   if (err == 0)
     err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &ctas, texture_stage_kernel<C, MODE>, kThreads, smem));
+        &ctas, kernel, kThreads, smem));
   if (err != 0) return err;
   const int v[8] = {kClips, kWarps, kThreads, static_cast<int>(smem), ctas,
                     attr.numRegs, static_cast<int>(attr.localSizeBytes),
@@ -538,17 +637,52 @@ int launch_mode(int mode, const Args& a, cudaStream_t s) {
 template <int C>
 int geometry_mode(int mode, int N, int* g) {
   switch (mode) {
-    case 0: return geometry<C, 0>(N, g);
-    case 1: return geometry<C, 1>(N, g);
-    case 2: return geometry<C, 2>(N, g);
-    case 3: return geometry<C, 3>(N, g);
-    case 4: return geometry<C, 4>(N, g);
+    case 0: return geometry(texture_stage_kernel<C, 0>, layout<0>(N).bytes, g);
+    case 1: return geometry(texture_stage_kernel<C, 1>, layout<1>(N).bytes, g);
+    case 2: return geometry(texture_stage_kernel<C, 2>, layout<2>(N).bytes, g);
+    case 3: return geometry(texture_stage_kernel<C, 3>, layout<3>(N).bytes, g);
+    case 4: return geometry(texture_stage_kernel<C, 4>, layout<4>(N).bytes, g);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 }  // namespace texture_stage
 }  // namespace juicy
+
+#define JUICY_TEXTURE_PARAMS                                                  \
+  const float *x, const float *dsp_in, const float *mat_in,                  \
+      const unsigned *rng_in, const int *widx_in, const float *lane_in,      \
+      float *ring, float *out, float *dsp_out, float *mat_out,               \
+      unsigned *rng_out, int *widx_out, float *pre_fin, float *pre_acc,      \
+      float *post_fin, float *post_acc, int B, int C, int N, int L
+
+namespace {
+constexpr int kLane = sizeof(juicy::LaneConsts) / sizeof(float);
+constexpr int kTex = sizeof(juicy::TexConsts) / sizeof(float);
+
+// The launch's Args with one material's constants (n_consts floats: the
+// lane's, then the texture's), checked; false when one is out of range.
+bool texture_args(juicy::texture_stage::Args& a, bool wave,
+                  JUICY_TEXTURE_PARAMS, unsigned jump_a, unsigned jump_b,
+                  const float* consts, int n_consts) {
+  if (n_consts < kLane + 16 || n_consts > kLane + kTex || B <= 0 || N <= 0 ||
+      (wave && (ring == nullptr || L < juicy::pipe::kChunk)))
+    return false;
+  a = juicy::texture_stage::Args{
+      x,       dsp_in,  mat_in,  rng_in,   widx_in,  lane_in,
+      ring,    out,     dsp_out, mat_out,  rng_out,  widx_out,
+      pre_fin, pre_acc, post_fin, post_acc, B,       N,
+      L,       jump_a,  jump_b,  {},       {}};
+  std::memset(&a.k, 0, sizeof(a.k));
+  std::memcpy(&a.lk, consts, sizeof(a.lk));
+  std::memcpy(&a.k, consts + kLane, (n_consts - kLane) * sizeof(float));
+  return true;
+}
+}  // namespace
+
+#define JUICY_TEXTURE_ARGS                                                    \
+  x, dsp_in, mat_in, rng_in, widx_in, lane_in, ring, out, dsp_out, mat_out,  \
+      rng_out, widx_out, pre_fin, pre_acc, post_fin, post_acc, B, C, N, L
 
 extern "C" {
 
@@ -557,32 +691,43 @@ extern "C" {
 // laid out as the kernel documents; `ring` may be null for modes 0, 1, 4.
 // `consts` is a host array of n_consts floats: the 7 lane constants, the
 // 16 common texture constants, then the material's (tex_param_list order).
-int juicy_texture_stage(const float* x, const float* dsp_in,
-                        const float* mat_in, const unsigned* rng_in,
-                        const int* widx_in, const float* lane_in, float* ring,
-                        float* out, float* dsp_out, float* mat_out,
-                        unsigned* rng_out, int* widx_out, float* pre_fin,
-                        float* pre_acc, float* post_fin, float* post_acc,
-                        int B, int C, int N, int L, int mode, unsigned jump_a,
+int juicy_texture_stage(JUICY_TEXTURE_PARAMS, int mode, unsigned jump_a,
                         unsigned jump_b, const float* consts, int n_consts,
                         void* stream) {
   namespace ts = juicy::texture_stage;
-  constexpr int kLane = sizeof(juicy::LaneConsts) / sizeof(float);
-  constexpr int kTex = sizeof(juicy::TexConsts) / sizeof(float);
-  if (n_consts < kLane + 16 || n_consts > kLane + kTex || B <= 0 || N <= 0 ||
-      ((mode == 2 || mode == 3) &&
-       (ring == nullptr || L < juicy::pipe::kChunk)))
+  ts::Args a;
+  if (!texture_args(a, mode == 2 || mode == 3, JUICY_TEXTURE_ARGS, jump_a,
+                    jump_b, consts, n_consts))
     return static_cast<int>(cudaErrorInvalidValue);
-  ts::Args a{x,       dsp_in,  mat_in,  rng_in,   widx_in,  lane_in,
-             ring,    out,     dsp_out, mat_out,  rng_out,  widx_out,
-             pre_fin, pre_acc, post_fin, post_acc, B,       N,
-             L,       jump_a,  jump_b,  {},       {}};
-  std::memset(&a.k, 0, sizeof(a.k));
-  std::memcpy(&a.lk, consts, sizeof(a.lk));
-  std::memcpy(&a.k, consts + kLane, (n_consts - kLane) * sizeof(float));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (C == 1) return ts::launch_mode<1>(mode, a, s);
   if (C == 2) return ts::launch_mode<2>(mode, a, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The mixed-material launch: `cta_mode` is a device array of one material
+// per 32 clips (ceil(B / 32) ints) whose clips share it; `mode_mask` has
+// bit m set for each material present; `consts` holds five host rows of
+// n_consts floats, row m material m's (rows of absent materials unread).
+// mat_in/mat_out hold [NMAT, B, C] with NMAT the largest of the materials
+// present, each clip's own material's leaves first.
+int juicy_texture_stage_mixed(JUICY_TEXTURE_PARAMS, const int* cta_mode,
+                              int mode_mask, unsigned jump_a,
+                              unsigned jump_b, const float* consts,
+                              int n_consts, void* stream) {
+  namespace ts = juicy::texture_stage;
+  if (cta_mode == nullptr || mode_mask <= 0 || mode_mask >= 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  ts::MixedArgs m{};
+  for (int k = 0; k < 5; ++k)
+    if (!texture_args(m.a[k], (mode_mask & 0b01100) != 0, JUICY_TEXTURE_ARGS,
+                      jump_a, jump_b, consts + k * n_consts, n_consts))
+      return static_cast<int>(cudaErrorInvalidValue);
+  m.cta_mode = cta_mode;
+  m.mask = mode_mask;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (C == 1) return ts::launch_mixed<1>(m, s);
+  if (C == 2) return ts::launch_mixed<2>(m, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -593,6 +738,18 @@ int juicy_texture_geometry(int mode, int C, int N, int* g) {
   if (N <= 0) return static_cast<int>(cudaErrorInvalidValue);
   if (C == 1) return juicy::texture_stage::geometry_mode<1>(mode, N, g);
   if (C == 2) return juicy::texture_stage::geometry_mode<2>(mode, N, g);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The mixed kernel's geometry for the materials of `mode_mask`, C channels
+// and block size N into g[8]; returns a CUDA error code.
+int juicy_texture_mixed_geometry(int mode_mask, int C, int N, int* g) {
+  namespace ts = juicy::texture_stage;
+  if (N <= 0 || mode_mask <= 0 || mode_mask >= 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = ts::mixed_smem(mode_mask, N);
+  if (C == 1) return ts::geometry(ts::texture_stage_mixed<1>, smem, g);
+  if (C == 2) return ts::geometry(ts::texture_stage_mixed<2>, smem, g);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -122,6 +122,9 @@ def load_library() -> ctypes.CDLL:
     lib.juicy_texture_stage.argtypes = (
         [ptr] * 16 + [i32] * 5 + [u32] * 2 + [ptr, i32, ptr])
     lib.juicy_texture_stage.restype = i32
+    lib.juicy_texture_stage_mixed.argtypes = (
+        [ptr] * 16 + [i32] * 4 + [ptr, i32] + [u32] * 2 + [ptr, i32, ptr])
+    lib.juicy_texture_stage_mixed.restype = i32
     lib.juicy_punch_stage.argtypes = [ptr] * 9 + [i32] * 3 + [ptr, i32, ptr]
     lib.juicy_punch_stage.restype = i32
     lib.juicy_motion_stage.argtypes = (
@@ -131,15 +134,21 @@ def load_library() -> ctypes.CDLL:
         [ptr] * 5 + [i32] * 2 + [ptr] * 17 + [i32] * 7 + [u32] * 2
         + [i32] * 2 + [ptr])
     lib.juicy_chain_block.restype = i32
+    lib.juicy_chain_block_mixed.argtypes = (
+        list(lib.juicy_chain_block.argtypes[:-1]) + [ptr, ptr])
+    lib.juicy_chain_block_mixed.restype = i32
     lib.juicy_chain_geometry.argtypes = [i32, i32, ptr]
     lib.juicy_chain_geometry.restype = i32
+    lib.juicy_chain_mixed_geometry.argtypes = [i32, ptr]
+    lib.juicy_chain_mixed_geometry.restype = i32
     for name in ("juicy_saturator_geometry", "juicy_motion_geometry"):
         getattr(lib, name).argtypes = [i32, i32, ptr]
         getattr(lib, name).restype = i32
     lib.juicy_punch_geometry.argtypes = [i32, i32, ptr]
     lib.juicy_punch_geometry.restype = i32
-    lib.juicy_texture_geometry.argtypes = [i32, i32, i32, ptr]
-    lib.juicy_texture_geometry.restype = i32
+    for name in ("juicy_texture_geometry", "juicy_texture_mixed_geometry"):
+        getattr(lib, name).argtypes = [i32, i32, i32, ptr]
+        getattr(lib, name).restype = i32
     lib.juicy_analyzer_block.argtypes = [ptr] * 4 + [i32] * 3 + [f32] * 7 + [ptr]
     lib.juicy_analyzer_block.restype = i32
     lib.juicy_cuda_error_string.argtypes = [i32]

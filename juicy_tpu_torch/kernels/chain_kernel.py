@@ -4,7 +4,8 @@ juicy_tpu/kernels/chain_kernel.py (``chain_kernel_step``,
 
 The chain is the canonical one, punch → saturator → texture → motion →
 width → cohere → infer (``CHAIN_ORDER``), stereo, with one static texture
-material; ``supports_chain_kernel`` says whether a ``Chain`` is such a chain.
+material or a material per clip; ``supports_chain_kernel`` says whether a
+``Chain`` is such a chain.
 ``chain_kernel_step(chain, states, block)`` and ``chain_kernel_stream(chain,
 states, clips, metrics, return_audio)`` keep the JAX contracts: per-stage
 states in the ``Chain`` form in and out, ``(out, new_states, per-stage
@@ -40,6 +41,15 @@ rows, edited one row at a time, and the kernel reads clip b's row at
 edit is structural: the Haas and waveguide delays are per-thread values,
 checked row by row. The plain version runs once per distinct row, on that
 row's clips, and scatters back; the finalize takes each clip's params.
+
+Per-clip texture materials (a texture stage ``with_traced("material")``
+whose ``material`` is a [B] row): the launch takes a material per CTA of
+32 clips (``juicy_chain_block_mixed``), each clip reading its own constant
+row (a ``ParamRows`` of the chain's params), so the stream first sorts the
+clips by material into runs padded to 32 and puts the results back after
+(``_ordered``, ``stage_kernels.material_order``). Per-block automation
+(``chain_kernel_stream(automation=)``) makes a table of constant rows, one
+per block (``block_tables``), and points each launch at its block's.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from juicy_tpu_torch.models import texture as _tex
 from juicy_tpu_torch.models import width as _width
 from juicy_tpu_torch.ops import noise as _noise
 from juicy_tpu_torch.ops.precise import F32, f32, onepole_narrow
+from juicy_tpu_torch.runtime.chain_fused import block_params, chain_automation
 from juicy_tpu_torch.runtime.plugin import _default_finalize
 from juicy_tpu_torch.utils.convert import db_to_gain, jmap
 
@@ -81,25 +92,25 @@ class ChainKernelUnsupported(ValueError):
     """Raised when a chain cannot run on the chain kernel."""
 
 
-def _check_chain(chain) -> int:
-    """The chain's static texture material, or ChainKernelUnsupported."""
+def _check_chain(chain):
+    """The chain's texture material: a static int, or the per-clip
+    materials [B] (int64, on the CPU) of a texture stage whose `material`
+    is a row (``Plugin.with_traced("material")``); ChainKernelUnsupported
+    when the chain is not the kernel's."""
     names = tuple(p.defn.name for p in chain.plugins)
     if names != CHAIN_ORDER:
         raise ChainKernelUnsupported(f"stage order {names} != {CHAIN_ORDER}")
     if chain.channels != 2:
         raise ChainKernelUnsupported("the chain kernel is stereo-only")
-    for plug, params in zip(chain.plugins, chain.params):
+    for i, (plug, params) in enumerate(zip(chain.plugins, chain.params)):
         for key, v in params.items():
-            if torch.as_tensor(v).ndim:
+            ndim = torch.as_tensor(v).ndim
+            if ndim and not (i == 2 and key == "material" and ndim == 1):
                 raise ChainKernelUnsupported(
                     f"{plug.defn.name} param {key!r} is batched: the chain "
-                    f"kernel takes one setting per stage")
-    mode = _tex.static_material(chain.plugins[2].full_params(chain.params[2]))
-    if mode is None:
-        raise ChainKernelUnsupported(
-            "per-clip texture materials are not ported to the chain kernel "
-            "(ROADMAP.md, Queue 1 item 3: materials=)")
-    return max(0, min(4, mode))
+                    f"kernel takes one setting per stage (and per-clip "
+                    f"texture materials)")
+    return _tex.material_mode(chain.plugins[2].full_params(chain.params[2]))
 
 
 def supports_chain_kernel(chain) -> bool:
@@ -129,13 +140,14 @@ def back_param_list(params, sr: float, n: int):
     return [f32(float(v)) for v in vals]
 
 
-def _full_params(chain):
-    return [p.full_params(pr) for p, pr in zip(chain.plugins, chain.params)]
+def _full_params(chain, params=None):
+    params = chain.params if params is None else params
+    return [p.full_params(pr) for p, pr in zip(chain.plugins, params)]
 
 
-def _chain_key(chain):
+def _chain_key(chain, params=None):
     return tuple(tuple(sorted((k, float(v)) for k, v in full.items()))
-                 for full in _full_params(chain))
+                 for full in _full_params(chain, params))
 
 
 @functools.lru_cache(maxsize=4096)      # a serving pool's distinct settings
@@ -171,24 +183,43 @@ def _constants_on(key, sr: float, n: int, device: str) -> torch.Tensor:
     return torch.tensor(_constants_cached(key, sr, n), device=device)
 
 
-def check_rows(rows: np.ndarray, D: int, L: int, wave: bool):
+def check_rows(rows: np.ndarray, D: int, L: int, wave):
     """Raise ChainKernelUnsupported unless every constant row [R, N_CONSTS]
     keeps its delays inside the kernel's rings: 0 <= Haas delay < D (the
     ring is read `delay` behind its head after the write) and, for wood and
-    plastic, 0 <= waveguide delay <= L - 2 (the model's own clamp)."""
+    plastic, 0 <= waveguide delay <= L - 2 (the model's own clamp). `wave`:
+    whether the rows are wood's or plastic's, or a mask [R] of those that
+    are."""
+    rows = rows.reshape(-1, N_CONSTS)
     haas = rows[:, _HAAS_DELAY]
     bad = (haas < 0) | (haas >= D)
     if bad.any():
         raise ChainKernelUnsupported(
             f"Haas delay of {int(haas[bad][0])} samples outside the window "
             f"of {D}")
-    if wave:
-        delay = rows[:, _WAVE_DELAY]
+    wave = np.resize(np.asarray(wave, bool), len(rows))
+    if wave.any():
+        delay = rows[wave, _WAVE_DELAY]
         bad = (delay < 0) | (delay > L - 2)
         if bad.any():
             raise ChainKernelUnsupported(
                 f"waveguide delay of {float(delay[bad][0])} samples outside "
                 f"the ring of {L}")
+
+
+def _unique_rows(mat: np.ndarray):
+    """``np.unique(mat, axis=0, return_index=True, return_inverse=True)``
+    of a float32 table [B, K] in some order, the rows compared as bytes over
+    the columns that vary: one sort of B keys (the row-wise sort takes
+    ~0.1 s for a few thousand rows)."""
+    vary = np.flatnonzero((mat != mat[:1]).any(axis=0))
+    if not len(vary):
+        return mat[:1], np.zeros(1, np.int64), np.zeros(len(mat), np.int64)
+    keys = np.ascontiguousarray(mat[:, vary]).view(
+        np.dtype((np.void, mat.itemsize * len(vary)))).reshape(-1)
+    _keys, first, inverse = np.unique(keys, return_index=True,
+                                      return_inverse=True)
+    return mat[first], first, inverse.reshape(-1)
 
 
 class ParamRows:
@@ -228,9 +259,9 @@ class ParamRows:
                 self._names.append((i, key))
         self._col = {name: j for j, name in enumerate(self._names)}
         self._mat = np.stack(cols, axis=1)                 # [B, K] float32
-        uniq, inverse = np.unique(self._mat, axis=0, return_inverse=True)
+        uniq, _first, inverse = _unique_rows(self._mat)
         self.consts = np.stack([self._row_consts(row)
-                                for row in uniq])[inverse.reshape(-1)]
+                                for row in uniq])[inverse]
         self._groups = None
         self._on = {}
 
@@ -272,8 +303,7 @@ class ParamRows:
     @property
     def groups(self):
         if self._groups is None:
-            uniq, inverse = np.unique(self._mat, axis=0, return_inverse=True)
-            inverse = inverse.reshape(-1)
+            uniq, _first, inverse = _unique_rows(self._mat)
             order = np.argsort(inverse, kind="stable")
             split = np.cumsum(np.bincount(inverse, minlength=len(uniq)))[:-1]
             self._groups = [
@@ -281,6 +311,36 @@ class ParamRows:
                   for p in self._stage_params(row)], torch.from_numpy(idx))
                 for row, idx in zip(uniq, np.split(order, split))]
         return self._groups
+
+    def column(self, stage: int, key: str) -> np.ndarray:
+        """The rows' values of one stage's param, [B]."""
+        return self._mat[:, self._col[(stage, key)]]
+
+    def block_consts(self, curves, nb: int):
+        """Per-block automation of these rows: (consts [nb, U, N_CONSTS],
+        block i's U distinct rows with every curve's value at i in place of
+        their own, each worked out once through the constants cache; the
+        distinct row of each clip [B]; a clip of each distinct row [U]).
+        `curves`: {(stage, key): [nb]} (chain_automation)."""
+        uniq, first, inverse = _unique_rows(self._mat)
+        cols = [(self._col[name], v) for name, v in curves.items()]
+        consts = np.empty((nb, len(uniq), N_CONSTS), np.float32)
+        for i in range(nb):
+            rows = uniq.copy()
+            for j, v in cols:
+                rows[:, j] = float(v[i])
+            consts[i] = [self._row_consts(row) for row in rows]
+        return consts, inverse.reshape(-1), first
+
+    def take(self, idx) -> "ParamRows":
+        """These rows in the order of the clip indices `idx` (repeats
+        allowed): a table of len(idx) clips."""
+        rows = copy.copy(self)
+        idx = np.asarray(idx)
+        rows.b = len(idx)
+        rows._mat, rows.consts = self._mat[idx], self.consts[idx]
+        rows._groups, rows._on = None, {}
+        return rows
 
     def _cached(self, device):
         dev = str(torch.device(device))
@@ -338,6 +398,16 @@ _CLIP_AXIS = {"punch_env": 1, "sat_tone": 0, "tex_dsp": 1, "tex_mat": 1,
               "co_tail": 0}
 
 
+def kernel_mode(chain, rows: ParamRows = None):
+    """The texture material the chain kernel runs: the chain's (_check_chain)
+    or, for a texture stage whose material is a param (with_traced) and
+    per-clip `rows`, the rows' materials [B]."""
+    mode = _check_chain(chain)
+    if rows is not None and "material" in chain.params[2]:
+        return _tex.clip_materials({"material": rows.column(2, "material")})
+    return mode
+
+
 class KernelChain:
     """The chain's state in kernel form on the card, packed once per call,
     and the launch of ``juicy_chain_block`` (csrc/chain.cu) for one block.
@@ -345,11 +415,20 @@ class KernelChain:
     after block; texture's ring write index and the Haas ring's write head
     are block-uniform host integers that advance by N per launch. Every
     clip reads the chain's one constant row, or its own row of a
-    ``ParamRows`` table (``set_rows``)."""
+    ``ParamRows`` table (``set_rows``).
+
+    Per-clip texture materials (``kernel_mode``) launch
+    ``juicy_chain_block_mixed``: a material per CTA of 32 clips, so the
+    clips of each CTA must share theirs (``stage_kernels.cta_modes``), and
+    each clip reads its own constant row (a ``ParamRows`` of the chain's
+    params when no rows are given). The material state is the largest of
+    the materials present, each clip's own leaves first
+    (``stage_kernels.tex_mat_stack``); only the wave clips use the ring."""
 
     def __init__(self, chain, states: Sequence[Dict], b: int, device,
                  rows: ParamRows = None):
-        self.mode = mode = _check_chain(chain)
+        self.mode = mode = kernel_mode(chain, rows)
+        self.mixed = not isinstance(mode, int)
         self.n, self.sr, self.b = chain.block_size, chain.sr, b
         dev = torch.device(device)
         dsp = [st["dsp"] for st in states]
@@ -363,22 +442,29 @@ class KernelChain:
         tex = sk.texture_kernel_state(dsp[2], mode)
         self.tex_dsp = torch.stack([_leaf(tex[k], bc, F32, dev, k)
                                     for k in sk._TEX_DSP_KEYS])
-        self.tex_mat = torch.stack(sk.tex_mat_leaves(tex, mode))
+        self.tex_mat = sk.tex_mat_stack(tex, mode)
         if (tuple(self.tex_mat.shape[1:]) != bc or self.tex_mat.dtype != F32
                 or self.tex_mat.device != dev):
             raise ValueError(f"texture material state must be float32 "
                              f"{bc} on {dev}")
         self.tex_rng = _leaf(tex["rng"], bb, torch.int32, dev, "rng")
         self.L = _tex.waveguide_size(self.sr)
-        self.wave = mode in _tex.WAVE_MODES
+        self.wave = sk.tex_has_wave(mode)
         self.tex_ring = tex["waveguide"] if self.wave else None
         if self.wave and (tuple(self.tex_ring.shape) != (self.L, 2, b)
                           or self.tex_ring.dtype != F32
                           or self.tex_ring.device != dev):
             raise ValueError(f"texture ring must be float32 [B, 2, {self.L}] "
                              f"on {dev}")
-        self.tex_widx = int(tex["wave_idx"].reshape(-1)[0]) if self.wave \
-            else 0
+        self.tex_widx = sk.wave_index(dsp[2], mode) if self.wave else 0
+        # which clips' rows hold wood's or plastic's constants
+        self.wave_clips = self.wave if not self.mixed else \
+            ((mode == 2) | (mode == 3)).numpy()
+        if self.mixed:
+            self.cta, self.mask = sk.cta_modes(mode, b, dev)
+            if rows is None:
+                rows = ParamRows(chain, chain.params, b)
+            self._own_rows = rows
         self.mot_mono = torch.stack([_leaf(mo[k], bb, F32, dev, k)
                                      for k in _motion.MONO_KEYS])
         self.mot_cd = _leaf(mo["onset_cooldown"], bb, torch.int32, dev,
@@ -404,14 +490,18 @@ class KernelChain:
         self.jump = _noise.jump(self.n)
         self.cooldown = _motion.cooldown_samples(self.sr)
         self.narrow = int(onepole_narrow(_motion.MAX_CUTOFF_HZ, self.sr))
-        self._key = _chain_key(chain)
+        self._key = None if self.mixed else _chain_key(chain)
         self.set_rows(rows)
 
     def set_rows(self, rows: ParamRows = None):
         """Every clip reads the chain's row (`rows` None: a clip stride of
-        0), or clip b row b of `rows`' table (stride N_CONSTS). Every row's
-        delays are checked (check_rows)."""
+        0; per-clip materials: the rows built from the chain), or clip b
+        row b of `rows`' table (stride N_CONSTS). Every row's delays are
+        checked (check_rows)."""
         dev = str(self.s0.device)
+        if rows is None and self.mixed:
+            rows = self._own_rows
+        self.rows = rows
         if rows is None:
             check_rows(_constants_cached(self._key, self.sr, self.n)[None],
                        self.D, self.L, self.wave)
@@ -421,7 +511,12 @@ class KernelChain:
             if rows.b != self.b:
                 raise ValueError(f"params rows for {rows.b} clips, state of "
                                  f"{self.b}")
-            check_rows(rows.consts, self.D, self.L, self.wave)
+            if self.mixed and not np.array_equal(
+                    _tex.clip_materials(
+                        {"material": rows.column(2, "material")}), self.mode):
+                raise ValueError("params rows' materials differ from the "
+                                 "state's")
+            check_rows(rows.consts, self.D, self.L, self.wave_clips)
             self.consts, self.cstride = rows.table(dev), N_CONSTS
 
     def clone(self) -> "KernelChain":
@@ -462,15 +557,22 @@ class KernelChain:
             self.mot_rng, self.mot_chan, self.haas, self.co_mono,
             self.co_tail, fit, lane_prev, fin, acc)]
         device = self.s0.device
+        tail = (self.L, self.tex_widx, self.D, self.haas_pos, *self.jump,
+                self.cooldown, self.narrow)
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.juicy_chain_block(
-                *ptrs, self.cstride, N_CONSTS, *state, self.b, self.n,
-                self.mode,
-                self.L, self.tex_widx, self.D, self.haas_pos, *self.jump,
-                self.cooldown, self.narrow, stream)
+            if self.mixed:
+                entry = "juicy_chain_block_mixed"
+                err = lib.juicy_chain_block_mixed(
+                    *ptrs, self.cstride, N_CONSTS, *state, self.b, self.n,
+                    self.mask, *tail, self.cta.data_ptr(), stream)
+            else:
+                entry = "juicy_chain_block"
+                err = lib.juicy_chain_block(
+                    *ptrs, self.cstride, N_CONSTS, *state, self.b, self.n,
+                    self.mode, *tail, stream)
         if err != 0:
-            raise RuntimeError(f"juicy_chain_block launch failed: CUDA error "
+            raise RuntimeError(f"{entry} launch failed: CUDA error "
                                f"{err} ({_build.error_string(lib, err)})")
         chain_kernel_step.launches += 1
         if self.wave:
@@ -482,11 +584,15 @@ class KernelChain:
         per stage (`context_fit` [B] is the last block's)."""
         tex = dict(states0[2]["dsp"])
         tex.update(zip(sk._TEX_DSP_KEYS, self.tex_dsp.unbind(0)))
-        tex.update(sk._tex_mat_dict(self.tex_mat.unbind(0), self.mode))
+        tex.update(sk.tex_mat_unstack(tex, self.tex_mat, self.mode))
         tex["rng"] = self.tex_rng
         if self.wave:
             tex["waveguide"] = self.tex_ring
-            tex["wave_idx"] = torch.full_like(tex["wave_idx"], self.tex_widx)
+            widx = torch.full_like(tex["wave_idx"], self.tex_widx)
+            if self.mixed:      # the other clips' index never moves
+                widx = torch.where(torch.from_numpy(self.wave_clips).to(
+                    widx.device)[:, None], widx, tex["wave_idx"])
+            tex["wave_idx"] = widx
         motion = dict(zip(_motion.MONO_KEYS, self.mot_mono.unbind(0)))
         motion.update(zip(_motion.CHAN_KEYS, self.mot_chan.unbind(0)))
         motion["onset_cooldown"] = self.mot_cd
@@ -513,6 +619,12 @@ def chain_geometry(mode: int, n: int, device=None) -> Dict[str, int]:
     return sk.read_geometry("juicy_chain_geometry", mode, n, device=device)
 
 
+def chain_mixed_geometry(n: int, device=None) -> Dict[str, int]:
+    """The mixed kernel's (a material per CTA; its registers the largest of
+    the five bodies') launch geometry for block size `n` on the card."""
+    return sk.read_geometry("juicy_chain_mixed_geometry", n, device=device)
+
+
 # ---------------------------------------------------------------------------
 # The two routes over a run of blocks: (out, dsp states, fin, acc, fit)
 # ---------------------------------------------------------------------------
@@ -523,9 +635,11 @@ def _lane_buffers(nb: int, b: int, device):
             torch.empty((nb, b), dtype=F32, device=device))
 
 
-def _launch_blocks(kc, clips, an_states, return_audio: bool):
+def _launch_blocks(kc, clips, an_states, return_audio: bool, tables=None):
     """Every block of `clips` [B, 2, T] through `kc`, one launch each, the
-    first block's pre lanes seeded from `an_states`. Returns (out [B, 2, T]
+    first block's pre lanes seeded from `an_states`; with per-block
+    constant `tables` ([nb, N_CONSTS], or [nb, B, N_CONSTS] with per-clip
+    rows: automation) block i reads tables[i]. Returns (out [B, 2, T]
     or None, fin [nb, 14, 5, B], acc [nb, 14, 10, B], context fit
     [nb, B])."""
     b, _c, t = clips.shape
@@ -538,6 +652,8 @@ def _launch_blocks(kc, clips, an_states, return_audio: bool):
     sink = None if return_audio else torch.empty_like(xt[:kc.n])
     for i in range(nb):
         sl = slice(i * kc.n, (i + 1) * kc.n)
+        if tables is not None:
+            kc.consts = tables[i]
         kc.launch(xt[sl], out_t[sl] if return_audio else sink, prev, fin[i],
                   acc[i], fit[i])
         prev = fin[i]
@@ -545,13 +661,38 @@ def _launch_blocks(kc, clips, an_states, return_audio: bool):
     return out, fin, acc, fit
 
 
-def _run_cuda(chain, states, clips, return_audio: bool, rows=None):
+def block_tables(kc: KernelChain, chain, curves, nb: int) -> torch.Tensor:
+    """Per-block automation as constant rows on `kc`'s device: block i's
+    chain params with every curve's value at i, [nb, N_CONSTS] (each worked
+    out once through the constants cache), or, where each clip reads its
+    own row (``ParamRows``: per-clip materials or params), [nb, B, N_CONSTS]:
+    each block's distinct rows, gathered by clip on the device. Every row's
+    delays are checked (check_rows)."""
+    device = kc.s0.device
+    if kc.rows is not None:
+        consts, inverse, first = kc.rows.block_consts(curves, nb)
+        check_rows(consts, kc.D, kc.L,
+                   np.resize(np.asarray(kc.wave_clips, bool), kc.b)[first])
+        return torch.from_numpy(consts).to(device)[
+            :, torch.from_numpy(inverse).to(device)]
+    table = np.stack([_constants_cached(
+        _chain_key(chain, block_params(chain, curves, i)), kc.sr, kc.n)
+        for i in range(nb)])
+    check_rows(table, kc.D, kc.L, kc.wave)
+    return torch.from_numpy(table).to(device)
+
+
+def _run_cuda(chain, states, clips, return_audio: bool, rows=None,
+              curves=None):
     """The kernel route over every block of `clips` [B, 2, T]: one launch
-    per block. Returns (out [B, 2, T] or None, dsp states, fin
+    per block, with per-block constants under automation (`curves`,
+    automation_curves). Returns (out [B, 2, T] or None, dsp states, fin
     [nb, 14, 5, B], acc [nb, 14, 10, B], context fit [nb, B])."""
     kc = KernelChain(chain, states, clips.shape[0], clips.device, rows)
+    tables = block_tables(kc, chain, curves, clips.shape[-1] // kc.n) \
+        if curves else None
     out, fin, acc, fit = _launch_blocks(
-        kc, clips, [st["analyzer"] for st in states], return_audio)
+        kc, clips, [st["analyzer"] for st in states], return_audio, tables)
     return out, kc.unpack(states, fit[-1]), fin, acc, fit
 
 
@@ -575,8 +716,10 @@ def chain_block_plain(chain, dsps, lane_prev, block):
     return x, new, torch.stack(fins), torch.stack(accs)
 
 
-def _run_plain(chain, states, clips, return_audio: bool, rows=None):
-    """The plain route over every block of `clips`; _run_cuda's contract."""
+def _run_plain(chain, states, clips, return_audio: bool, rows=None,
+               curves=None):
+    """The plain route over every block of `clips`; _run_cuda's contract.
+    Under automation each block runs the chain with that block's params."""
     if rows is not None:
         return _run_plain_rows(chain, states, clips, return_audio, rows)
     b, _c, t = clips.shape
@@ -588,7 +731,11 @@ def _run_plain(chain, states, clips, return_audio: bool, rows=None):
     out = torch.empty_like(clips) if return_audio else None
     for i in range(nb):
         sl = slice(i * n, (i + 1) * n)
-        y, dsps, fin[i], acc[i] = chain_block_plain(chain, dsps, prev,
+        blk_chain = chain
+        if curves:
+            blk_chain = copy.copy(chain)
+            blk_chain.params = block_params(chain, curves, i)
+        y, dsps, fin[i], acc[i] = chain_block_plain(blk_chain, dsps, prev,
                                                     clips[..., sl])
         fit[i] = dsps[5]["context_fit"]
         if return_audio:
@@ -600,7 +747,8 @@ def _run_plain(chain, states, clips, return_audio: bool, rows=None):
 def _run_plain_rows(chain, states, clips, return_audio: bool, rows):
     """The plain route with per-clip params. Clips are independent, so it
     runs once per distinct setting, on that setting's clips with its params
-    as the chain's, and scatters the results back: the kernel's function."""
+    as the chain's, and scatters the results back: the kernel's
+    function."""
     b, _c, t = clips.shape
     fin, acc, fit = _lane_buffers(t // chain.block_size, b, clips.device)
     out = torch.empty_like(clips) if return_audio else None
@@ -743,11 +891,47 @@ def _finalize_one(chain, an_states, fin, acc, fit, rows, device):
     return new_an, [{k: v[0] for k, v in m.items()} for m in ms]
 
 
+def _ordered(run, chain, states, clips, return_audio: bool, rows=None,
+             curves=None):
+    """`run` over `clips`; with per-clip materials that the CTAs do not
+    share, over the clips sorted by material into runs of 32
+    (stage_kernels.MaterialOrder: one gather of the clips, their states and
+    rows before, one scatter of the outputs, states and lanes after; the
+    padding never leaves). Same contract as `run`."""
+    order = sk.material_order(kernel_mode(chain, rows))
+    if order is None:
+        return run(chain, states, clips, return_audio, rows, curves)
+    b = clips.shape[0]
+    sub = copy.copy(chain)
+    sub.params = [order.tree(p, b) for p in chain.params]
+    sub_states = [{g: order.tree(st[g], b) for g in ("analyzer", "dsp")}
+                  for st in states]
+    sub_rows = None if rows is None else rows.take(order.take.numpy())
+    out, dsps, fin, acc, fit = run(sub, sub_states, order.clips(clips),
+                                   return_audio, sub_rows, curves)
+    bp = len(order.take)
+    return (None if out is None else order.scatter(out),
+            [order.tree(d, bp, scatter=True) for d in dsps],
+            order.scatter(fin, -1), order.scatter(acc, -1),
+            order.scatter(fit, -1))
+
+
+def _automated_params(chain, rows, curves, device):
+    """Each stage's full params for the score formulas over [nb, B]
+    metrics: the rows' [B] leaves (or the chain's), each automated param
+    its curve [nb, 1]."""
+    params = [dict(p) for p in (_full_params(chain) if rows is None
+                                else rows.full_on(device))]
+    for (stage, key), v in curves.items():
+        params[stage][key] = v.to(device)[:, None]
+    return params
+
+
 def _step(run, chain, states, block, params_rows):
     _check_block(chain, block)
     rows = _as_rows(chain, params_rows, block.shape[0])
     states = list(states)
-    out, dsps, fin, acc, fit = run(chain, states, block, True, rows)
+    out, dsps, fin, acc, fit = _ordered(run, chain, states, block, True, rows)
     new_an, metrics = _finalize_one(chain, [st["analyzer"] for st in states],
                                     fin, acc, fit, rows, block.device)
     return out, [{"analyzer": a, "dsp": d} for a, d in zip(new_an, dsps)], \
@@ -773,16 +957,26 @@ def kernel_chain_tick(kc: KernelChain, chain, an_states, block,
     return out, new_an, metrics
 
 
-def _stream(run, chain, states, clips, metrics: str, return_audio: bool):
+def _stream(run, chain, states, clips, metrics: str, return_audio: bool,
+            automation=None):
     if metrics not in ("blocks", "final", "none"):
         raise ValueError(f"metrics must be blocks, final or none; got "
                          f"{metrics!r}")
     _check_chain(chain)
     _check_input(chain, clips, "clips")
+    if automation and "material" in automation.get(2, {}):
+        raise ChainKernelUnsupported(
+            "texture's material selects the kernel's code path and cannot "
+            "be automated on the chain kernel")
+    curves = chain_automation(chain, automation,
+                              clips.shape[-1] // chain.block_size)
     states = list(states)
-    out, dsps, fin, acc, fit = run(chain, states, clips, return_audio)
-    new_an, ms = finalize_stream(chain, [st["analyzer"] for st in states],
-                                 fin, acc, fit)
+    out, dsps, fin, acc, fit = _ordered(run, chain, states, clips,
+                                        return_audio, None, curves)
+    new_an, ms = finalize_stream(
+        chain, [st["analyzer"] for st in states], fin, acc, fit,
+        _automated_params(chain, None, curves, clips.device) if curves
+        else None)
     if metrics == "final":
         ms = [{k: v[-1] for k, v in m.items()} for m in ms]
     elif metrics == "none":
@@ -813,17 +1007,27 @@ chain_kernel_step.launches = 0
 
 
 def chain_kernel_stream_plain(chain, states, clips, metrics: str = "blocks",
-                              return_audio: bool = True):
+                              return_audio: bool = True, automation=None):
     """The chain stream as plain PyTorch, on any device."""
-    return _stream(_run_plain, chain, states, clips, metrics, return_audio)
+    return _stream(_run_plain, chain, states, clips, metrics, return_audio,
+                   automation)
 
 
 def chain_kernel_stream(chain, states, clips, metrics: str = "blocks",
-                        return_audio: bool = True):
+                        return_audio: bool = True, automation=None):
     """A [B, 2, T] corpus through the chain block by block: one chain-kernel
     launch per block for CUDA `clips` (the state packed and the corpus
     permuted once each way), the plain version for CPU `clips`. Returns
     (out [B, 2, T] or None without `return_audio`, final states, per-stage
     metrics with leaves [nb, B], the last block's under "final", or None
-    under "none"), as ``fused_chain_stream``."""
-    return _stream(_route(clips), chain, states, clips, metrics, return_audio)
+    under "none"), as ``fused_chain_stream``.
+
+    `automation`: {stage index: {param: curve}} with one value per block
+    ([nb]): block i reads the constant row of the chain's params with the
+    curves' values at i (a table [nb, N_CONSTS] made once, one row pointer
+    per launch), and the score formulas take them per block. Texture's
+    material cannot be automated (ChainKernelUnsupported). A texture stage
+    with per-clip materials runs sorted by material (``_ordered``), one
+    launch per block over the whole corpus."""
+    return _stream(_route(clips), chain, states, clips, metrics, return_audio,
+                   automation)

@@ -322,6 +322,70 @@ def tex_param_list(params, sr: float, mode: int):
     return [f32(v) for v in pv]
 
 
+def tex_modes(mode):
+    """The materials of a static `mode` (an int) or of per-clip materials
+    (an int64 tensor [B] on the CPU, models/texture.py::clip_materials)."""
+    return [mode] if isinstance(mode, int) else list(_modes_of(_key(mode)))
+
+
+def _key(mode) -> bytes:
+    return mode.numpy().tobytes()
+
+
+@functools.lru_cache(maxsize=16)
+def _modes_of(key: bytes):
+    return tuple(sorted(set(np.frombuffer(key, np.int64).tolist())))
+
+
+@functools.lru_cache(maxsize=16)
+def _modes_on(key: bytes, device: str) -> torch.Tensor:
+    """Per-clip materials on `device`, copied there once (each block of a
+    corpus asks again)."""
+    return torch.from_numpy(np.frombuffer(key, np.int64).copy()).to(device)
+
+
+def tex_has_wave(mode) -> bool:
+    """Whether wood or plastic is among `mode`'s materials."""
+    return any(m in _tex.WAVE_MODES for m in tex_modes(mode))
+
+
+def _clip_mask(mode, m: int, like: torch.Tensor, axis: int = 0):
+    """[B] mask of material `m`'s clips, shaped to broadcast against `like`
+    whose clip axis is `axis`."""
+    sel = _modes_on(_key(mode), str(like.device)) == m
+    return sel.reshape(sel.shape + (1,) * (like.ndim - axis - 1))
+
+
+def tex_mat_stack(dsp, mode) -> torch.Tensor:
+    """The material state in the kernels' form [NMAT, B, C]: a static
+    material's leaves (tex_mat_leaves), or with per-clip materials each
+    clip's own material's leaves first, NMAT the largest of the materials
+    present (the other rows zero)."""
+    if isinstance(mode, int):
+        return torch.stack(tex_mat_leaves(dsp, mode))
+    stacks = {m: torch.stack(tex_mat_leaves(dsp, m)) for m in tex_modes(mode)}
+    out = torch.zeros((max(len(v) for v in stacks.values()),
+                       *dsp["env"].shape), dtype=F32, device=dsp["env"].device)
+    for m, v in stacks.items():
+        out[:len(v)] = torch.where(_clip_mask(mode, m, v, 1), v, out[:len(v)])
+    return out
+
+
+def tex_mat_unstack(dsp, mat: torch.Tensor, mode):
+    """The state entries of the kernels' material state `mat` (the inverse
+    of tex_mat_stack): with per-clip materials each clip's own material's
+    leaves from `mat`, its other materials' leaves from `dsp`."""
+    if isinstance(mode, int):
+        return _tex_mat_dict(mat.unbind(0), mode)
+    new = {}
+    for m in tex_modes(mode):
+        nmat = len(tex_mat_leaves(dsp, m))
+        for key, v in _tex_mat_dict(mat[:nmat].unbind(0), m).items():
+            new[key] = torch.where(_clip_mask(mode, m, v),
+                                   v, new.get(key, dsp[key]))
+    return new
+
+
 def tex_mat_leaves(dsp, mode: int):
     """Material-state leaves ([B, C] each) in the kernel's order."""
     if mode == 0:
@@ -350,32 +414,43 @@ def _tex_mat_dict(leaves, mode: int):
     return d
 
 
-def texture_kernel_state(dsp, mode: int):
+def wave_index(dsp, mode) -> int:
+    """The ring write index of the wave clips (every clip's for a static
+    wood or plastic; with per-clip materials, wood's and plastic's clips'),
+    which must be one value inside the ring; raises otherwise."""
+    widx, L = dsp["wave_idx"], dsp["waveguide"].shape[-1]
+    if not isinstance(mode, int):
+        widx = widx[((mode == 2) | (mode == 3)).to(widx.device)]
+    w0 = int(widx.reshape(-1)[0])
+    if not (0 <= w0 < L and bool(torch.all(widx == w0))):
+        raise ValueError("texture kernel: wave_idx differs between the wave "
+                         "clips or channels, or lies outside the ring; the "
+                         "kernels take one ring write index for the batch")
+    return w0
+
+
+def texture_kernel_state(dsp, mode):
     """Texture state (as from ``Plugin.init_state``) -> kernel form: ``rng``
-    as int32 bits and, for wood and plastic, the ring [B, C, L] as a new
+    as int32 bits and, when wood or plastic is among `mode`'s materials (a
+    static int, or per-clip materials [B]), the ring [B, C, L] as a new
     time-major [L, C, B] tensor. The TPU kernel reads one write index for
-    the whole batch (``wave_idx.reshape(-1)[0]``); that precondition is
-    checked here, once per corpus, and a state that breaks it raises."""
+    the whole batch (``wave_idx.reshape(-1)[0]``); that precondition, over
+    the wave clips, is checked here, once per corpus, and a state that
+    breaks it raises."""
     st = dict(dsp)
     st["rng"] = _noise.u32_to_i32_bits(dsp["rng"])
-    if mode in _tex.WAVE_MODES:
-        widx, ring = dsp["wave_idx"], dsp["waveguide"]
-        w0 = int(widx.reshape(-1)[0])
-        if not (0 <= w0 < ring.shape[-1] and bool(torch.all(widx == w0))):
-            raise ValueError("texture kernel: wave_idx differs between clips "
-                             "or channels, or lies outside the ring; the "
-                             "stage kernel needs one ring write index for "
-                             "the whole batch")
-        st["waveguide"] = ring.permute(2, 1, 0).contiguous()
+    if tex_has_wave(mode):
+        wave_index(dsp, mode)
+        st["waveguide"] = dsp["waveguide"].permute(2, 1, 0).contiguous()
     return st
 
 
-def texture_ring_state(dsp, mode: int):
+def texture_ring_state(dsp, mode):
     """Kernel form -> texture state: the inverse of texture_kernel_state,
     exact."""
     st = dict(dsp)
     st["rng"] = _noise.i32_bits_to_u32(dsp["rng"])
-    if mode in _tex.WAVE_MODES:
+    if tex_has_wave(mode):
         st["waveguide"] = dsp["waveguide"].permute(2, 1, 0).contiguous()
     return st
 
@@ -397,21 +472,31 @@ class KernelRing:
         v1 = self.wg[i1.long(), self._c, self._b]
         return v0 + frac * (v1 - v0)
 
-    def write(self, value: torch.Tensor):
-        self.wg[self.widx.long(), self._c, self._b] = value
-        nxt = self.widx + 1
-        self.widx = torch.where(nxt >= self.L, nxt - self.L, nxt)
+    def write(self, value: torch.Tensor, mask=None):
+        """As StateRing.write: with `mask` only those rows write and move
+        their index."""
+        idx = (self.widx.long(), self._c, self._b)
+        if mask is not None:
+            value = torch.where(mask, value, self.wg[idx])
+        self.wg[idx] = value
+        self.widx = _tex.advance_index(self.widx, self.L, mask)
 
 
-def _tex_lanes_plain(x, dsp, lane0, params, sr: float, mode: int):
+def _tex_lanes_plain(x, dsp, lane0, params, sr: float, mode):
     """Plain PyTorch version of the kernel: the per-sample body of
-    models/texture.py on [B, C] tensors, the LCG stepped per sample as the
-    kernel steps it. x [B, C, N], dsp in kernel form (the ring updated in
-    place), lane0 [5, B] -> (out [B, C, N], dsp', pre fin, pre acc, post
-    fin, post acc)."""
+    models/texture.py on [B, C] tensors (its traced path for per-clip
+    materials `mode` [B]), the LCG stepped per sample as the kernel steps
+    it. x [B, C, N], dsp in kernel form (the ring updated in place), lane0
+    [5, B] -> (out [B, C, N], dsp', pre fin, pre acc, post fin, post
+    acc)."""
     c, n = x.shape[1], x.shape[2]
-    consts, extract, mat_step, pack = _tex.block_consts(
-        params, sr, mode, _tex.waveguide_size(sr), x.device, ring=KernelRing)
+    L = _tex.waveguide_size(sr)
+    if isinstance(mode, int):
+        consts, extract, mat_step, pack = _tex.block_consts(
+            params, sr, mode, L, x.device, ring=KernelRing)
+    else:
+        consts, extract, mat_step, pack = _tex.traced_block_consts(
+            params, sr, L, x.device, ring=KernelRing)
     step = _tex.make_sample_step(consts, mat_step)
     carry = _tex.extract_scan_carry(dsp, extract)
     rng = _noise.i32_bits_to_u32(dsp["rng"])
@@ -435,15 +520,15 @@ def _tex_lanes_plain(x, dsp, lane0, params, sr: float, mode: int):
     return out, new_dsp, pre_fin, pre_acc, post_fin, post_acc
 
 
-def tex_cuda_buffers(x, dsp, lane0, mode: int):
+def tex_cuda_buffers(x, dsp, lane0, mode):
     """The kernel's inputs in its layout and its freshly allocated outputs,
     as a dict of tensors (the layout permutes of one block)."""
     b = x.shape[0]
-    wave = mode in _tex.WAVE_MODES
+    wave = tex_has_wave(mode)
     bufs = dict(
         x=x.permute(2, 1, 0).contiguous(),                  # [N, C, B]
         dsp_in=torch.stack([dsp[k] for k in _TEX_DSP_KEYS]),  # [9, B, C]
-        mat_in=torch.stack(tex_mat_leaves(dsp, mode)),        # [M, B, C]
+        mat_in=tex_mat_stack(dsp, mode),                      # [M, B, C]
         rng_in=dsp["rng"].contiguous(),
         widx_in=dsp["wave_idx"].contiguous(),
         lane_in=lane0.contiguous(),
@@ -453,8 +538,11 @@ def tex_cuda_buffers(x, dsp, lane0, mode: int):
         dsp_out=torch.empty_like(bufs["dsp_in"]),
         mat_out=torch.empty_like(bufs["mat_in"]),
         rng_out=torch.empty_like(bufs["rng_in"]),
-        widx_out=(torch.empty_like(bufs["widx_in"]) if wave
-                  else bufs["widx_in"]),
+        # the wave clips write their index; with per-clip materials the
+        # others keep theirs
+        widx_out=(bufs["widx_in"] if not wave
+                  else torch.empty_like(bufs["widx_in"]) if isinstance(mode, int)
+                  else bufs["widx_in"].clone()),
         **{name: torch.empty((rows, b), dtype=F32, device=x.device)
            for name, rows in (("pre_fin", 5), ("pre_acc", 10),
                               ("post_fin", 5), ("post_acc", 10))})
@@ -466,37 +554,190 @@ _TEX_ARGS = ("x", "dsp_in", "mat_in", "rng_in", "widx_in", "lane_in", "ring",
              "pre_acc", "post_fin", "post_acc")
 
 
-def tex_cuda_launch(bufs, params, sr: float, mode: int):
+#: floats in a texture kernel's constant row: the lane's, then texture's
+#: (csrc/texture.cuh TexConsts)
+TEX_ROW = 7 + len(_TEX_COMMON) + 25
+
+
+def cta_modes(mode, b: int, device):
+    """Per-clip materials `mode` [B] as the mixed kernels read them: one
+    material per CTA of 32 clips (the lanes past B run on the last clip),
+    an int32 tensor on `device`, and the mask of the materials present.
+    Raises unless the clips of every CTA share their material."""
+    if mode.numel() != b:
+        raise ValueError(f"{mode.numel()} materials for a batch of {b}")
+    runs = _cta_runs(mode)
+    if not bool(torch.all(runs == runs[:, :1])):
+        raise ValueError("the clips of a CTA (32 in a row) hold different "
+                         "texture materials: sort the batch by material "
+                         "into runs of 32 (MaterialOrder)")
+    return _cta_on(runs[:, 0].to(torch.int32).numpy().tobytes(),
+                   str(torch.device(device)))
+
+
+def _cta_runs(mode) -> torch.Tensor:
+    """Per-clip materials [B] as [CTAs, 32], the lanes past B on the last
+    clip (as the kernels run them)."""
+    m = mode.reshape(-1)
+    return torch.cat([m, m[-1:].expand((-len(m)) % 32)]).reshape(-1, 32)
+
+
+def cta_uniform(mode) -> bool:
+    """Whether the 32 clips of every CTA share their material."""
+    runs = _cta_runs(mode)
+    return bool(torch.all(runs == runs[:, :1]))
+
+
+def material_order(mode):
+    """The ``MaterialOrder`` a batch with texture materials `mode` needs
+    for the mixed kernels: None for a static material, or where the 32
+    clips of every CTA already share theirs."""
+    if isinstance(mode, int) or cta_uniform(mode):
+        return None
+    return MaterialOrder(mode)
+
+
+class MaterialOrder:
+    """A batch with per-clip materials `mode` [B] in the mixed kernels'
+    order: sorted by material (stable), each material's run padded to a
+    multiple of 32 with silent copies of its first clip, so that the 32
+    clips of every CTA share their material; and the CTAs laid out so that
+    CTA j and CTA j + ceil(n / 2) share theirs wherever the counts allow
+    (``_paired``). ``take`` [Bp] is the batch's clip in each slot, ``pad``
+    [Bp] marks the padding slots, ``pos`` [B] each clip's slot and
+    ``mode`` [Bp] the slots' materials."""
+
+    def __init__(self, mode):
+        m = mode.reshape(-1).numpy()
+        order = np.argsort(m, kind="stable")
+        chunks = {}
+        for v in np.unique(m):
+            idx = order[m[order] == v]
+            extra = (-len(idx)) % 32
+            take = np.concatenate([idx, np.full(extra, idx[0])])
+            pad = np.concatenate([np.zeros(len(idx), bool),
+                                  np.ones(extra, bool)])
+            chunks[int(v)] = list(zip(take.reshape(-1, 32),
+                                      pad.reshape(-1, 32)))[::-1]
+        seq = _paired([v for v, c in chunks.items() for _ in c])
+        parts = [chunks[v].pop() for v in seq]
+        take = np.concatenate([t for t, _p in parts])
+        pad = np.concatenate([q for _t, q in parts])
+        pos = np.empty(len(m), np.int64)
+        pos[take[~pad]] = np.nonzero(~pad)[0]
+        self.take, self.pad, self.pos = (torch.from_numpy(a)
+                                         for a in (take, pad, pos))
+        self.mode = torch.from_numpy(m[take])
+        self._on = {}
+
+    def _index(self, name: str, device) -> torch.Tensor:
+        """An index on `device`, copied there once."""
+        key = (name, str(device))
+        if key not in self._on:
+            self._on[key] = getattr(self, name).to(device)
+        return self._on[key]
+
+    def gather(self, t: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """`t`'s clips (along `axis`) in slot order."""
+        return t.index_select(axis, self._index("take", t.device))
+
+    def scatter(self, t: torch.Tensor, axis: int = 0) -> torch.Tensor:
+        """Slot-ordered `t` back in the batch's order, padding dropped."""
+        return t.index_select(axis, self._index("pos", t.device))
+
+    def clips(self, x: torch.Tensor) -> torch.Tensor:
+        """Audio [B, ...] in slot order, the padding slots silent."""
+        y = self.gather(x)
+        y[self._index("pad", y.device)] = 0.0
+        return y
+
+    def tree(self, tree, b: int, scatter: bool = False):
+        """A dict of tensors (or numbers) as tensors, every leaf whose
+        leading axis runs over `b` clips gathered into slot order (or
+        scattered back)."""
+        fn = self.scatter if scatter else self.gather
+        tree = {k: torch.as_tensor(v) for k, v in tree.items()}
+        return {k: fn(v) if v.ndim and v.shape[0] == b else v
+                for k, v in tree.items()}
+
+
+def _paired(ctas):
+    """The CTAs' materials (sorted runs) reordered so that CTA j and CTA
+    j + len // 2 share a material for as many j as the counts allow, the
+    odd ones left over in between. Two CTAs share an SM; when their
+    materials differ, their texture roles' code competes for the SM's
+    instruction cache: on the H100 at B = 8192 this order took the mixed
+    chain kernel from 1.24 to 1.17-1.20 ms and the mixed texture kernel
+    from 0.332 to 0.293 ms (PERF.md)."""
+    first, left = [], []
+    for v in dict.fromkeys(ctas):
+        c = ctas.count(v)
+        first += [v] * (c // 2)
+        left += [v] * (c % 2)
+    cut = len(ctas) // 2 - len(first)
+    return first + left[:cut] + first + left[cut:]
+
+
+@functools.lru_cache(maxsize=64)
+def _cta_on(modes: bytes, device: str):
+    cta = np.frombuffer(modes, np.int32)
+    return (torch.from_numpy(cta.copy()).to(device),
+            int(np.bitwise_or.reduce(1 << cta)))
+
+
+def _tex_consts_table(params, sr: float):
+    """Five rows of TEX_ROW floats, row m material m's stage_scalars: the
+    mixed launch's host constants (every row filled: the roles that all
+    materials share read row 0)."""
+    table = np.zeros((5, TEX_ROW), np.float32)
+    for m in range(5):
+        row = stage_scalars("texture", dict(params, material=m), sr)
+        table[m, :row.size] = row
+    return table
+
+
+def tex_cuda_launch(bufs, params, sr: float, mode):
     """Launch ``juicy_texture_stage`` (csrc/texture_stage.cu) on prepared
-    buffers, on the current stream of their device; raises on a refused
-    launch."""
+    buffers, on the current stream of their device; for per-clip materials
+    `mode` [B] (CTA-uniform, cta_modes) ``juicy_texture_stage_mixed``.
+    Raises on a refused launch."""
     from juicy_tpu_torch.kernels import _build
 
     lib = _build.load_library()
     n, c, b = bufs["x"].shape
-    consts = stage_scalars("texture", params, sr)
     jump_a, jump_b = _noise.jump(n)
     ptrs = [None if bufs[k] is None else bufs[k].data_ptr() for k in _TEX_ARGS]
     device = bufs["x"].device
+    L = _tex.waveguide_size(sr)
+    if isinstance(mode, int):
+        consts = stage_scalars("texture", params, sr)
+    else:
+        cta, mask = cta_modes(mode, b, device)
+        consts = _tex_consts_table(params, sr)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.juicy_texture_stage(
-            *ptrs, b, c, n, _tex.waveguide_size(sr), mode, jump_a, jump_b,
-            consts.ctypes.data, consts.size, stream)
+        if isinstance(mode, int):
+            err = lib.juicy_texture_stage(
+                *ptrs, b, c, n, L, mode, jump_a, jump_b,
+                consts.ctypes.data, consts.size, stream)
+        else:
+            err = lib.juicy_texture_stage_mixed(
+                *ptrs, b, c, n, L, cta.data_ptr(), mask, jump_a, jump_b,
+                consts.ctypes.data, TEX_ROW, stream)
     if err != 0:
         raise RuntimeError(f"juicy_texture_stage launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
     texture_stage_step.launches += 1
 
 
-def _tex_lanes_cuda(x, dsp, lane0, params, sr: float, mode: int):
+def _tex_lanes_cuda(x, dsp, lane0, params, sr: float, mode):
     """The kernel route: layout, launch, unpack. Same contract as
     _tex_lanes_plain."""
     bufs = tex_cuda_buffers(x, dsp, lane0, mode)
     tex_cuda_launch(bufs, params, sr, mode)
     new_dsp = dict(dsp)
     new_dsp.update(zip(_TEX_DSP_KEYS, bufs["dsp_out"].unbind(0)))
-    new_dsp.update(_tex_mat_dict(bufs["mat_out"].unbind(0), mode))
+    new_dsp.update(tex_mat_unstack(dsp, bufs["mat_out"], mode))
     new_dsp["rng"] = bufs["rng_out"]
     new_dsp["wave_idx"] = bufs["widx_out"]
     return (bufs["out"].permute(2, 1, 0), new_dsp, bufs["pre_fin"],
@@ -510,9 +751,12 @@ def _tex_stage(lanes_fn, params, state, block, sr: float):
     b, c, n = block.shape
     if c not in (1, 2) or n == 0 or b == 0:
         raise ValueError(f"unsupported block shape {tuple(block.shape)}")
-    mode = _tex.require_static(params)
+    mode = _tex.material_mode(params)
+    if not isinstance(mode, int) and tuple(mode.shape) != (b,):
+        raise ValueError(f"materials of shape {tuple(mode.shape)} for a "
+                         f"batch of {b}")
     for key, v in params.items():
-        if torch.as_tensor(v).ndim:
+        if key != "material" and torch.as_tensor(v).ndim:
             raise ValueError(f"the stage kernel takes one setting per call; "
                              f"param {key!r} is batched")
     dsp = state["dsp"]
@@ -520,7 +764,7 @@ def _tex_stage(lanes_fn, params, state, block, sr: float):
         raise ValueError("texture state is not in kernel form: convert it "
                          "once with texture_kernel_state")
     L = _tex.waveguide_size(sr)
-    wave = mode in _tex.WAVE_MODES
+    wave = tex_has_wave(mode)
     ring = dsp["waveguide"]
     want_ring = (L, c, b) if wave else (b, c, L)
     if tuple(ring.shape) != want_ring or (wave and not (
@@ -530,7 +774,8 @@ def _tex_stage(lanes_fn, params, state, block, sr: float):
                          f"expected contiguous float32 {want_ring} on the "
                          f"block's device (kernel form)")
     leaves = {k: dsp[k] for k in _TEX_DSP_KEYS}
-    leaves.update(enumerate(tex_mat_leaves(dsp, mode)))
+    for m in tex_modes(mode):
+        leaves.update(enumerate(tex_mat_leaves(dsp, m), start=10 * m))
     for key, t in leaves.items():
         if tuple(t.shape) != (b, c) or t.dtype != F32 or t.device != block.device:
             raise ValueError(f"texture state {key!r} must be float32 [B, C] "
@@ -559,8 +804,10 @@ def texture_stage_step_plain(params, state, block, sr: float):
 def texture_stage_step(params, state, block, sr: float):
     """Full texture step (pre-analyze → DSP → post-analyze) in one kernel
     launch for a CUDA `block`; the plain version for a CPU `block`.
-    `params` hold a static ``material``; the texture state is in kernel form
-    (texture_kernel_state) and its ring is updated in place."""
+    `params` hold a static ``material``, or one per clip [B], in which case
+    the clips of each CTA (32 in a row) must share theirs (cta_modes) and
+    the launch takes a material per CTA; the texture state is in kernel
+    form (texture_kernel_state) and its ring is updated in place."""
     if block.device.type == "cuda":
         return _tex_stage(_tex_lanes_cuda, params, state, block, sr)
     if block.device.type == "cpu":
@@ -903,4 +1150,14 @@ def texture_geometry(mode: int, n: int, channels: int = 2,
     """The texture stage kernel's geometry for material `mode` and block
     size `n`."""
     return read_geometry("juicy_texture_geometry", mode, channels, n,
+                         device=device)
+
+
+def texture_mixed_geometry(modes, n: int, channels: int = 2,
+                           device=None) -> Dict[str, int]:
+    """The mixed texture kernel's geometry for a launch holding the
+    materials `modes` and block size `n`: its registers are the largest of
+    the five bodies', its shared memory the largest of `modes`'."""
+    mask = sum(1 << m for m in set(modes))
+    return read_geometry("juicy_texture_mixed_geometry", mask, channels, n,
                          device=device)

@@ -1,5 +1,5 @@
 """JuicyTexture, the material resonator: PyTorch port of
-juicy_tpu/models/texture.py (the static-material path).
+juicy_tpu/models/texture.py.
 
 Per channel, per sample (reference PluginProcessor.cpp:114-277): band split
 140/2600 Hz → impact/body/trail envelopes → one of five material models
@@ -16,9 +16,11 @@ parallel, bit-exact (ops/noise.py).
 :func:`process` runs the C++ inner loop serially over the block on
 [..., C] tensors, in the C++ op order, which is also the op order of the
 CUDA stage kernel (csrc/texture.cuh). Constants that come from params stay
-0-dim float32 tensors so that every operation rounds in float32.
-``material`` must be static (``Plugin.with_static(material=m)``); a per-clip
-material tensor takes JAX's traced-material path, which is not ported.
+float32 tensors (0-dim, or [..., 1] for per-clip values against the
+[..., C] lanes) so that every operation rounds in float32.
+``material`` is static (``Plugin.with_static(material=m)``) or one value per
+clip (``Plugin.with_traced("material")``): :func:`process_traced` runs each
+clip's own material, bit-equal to that material's static path.
 """
 
 from __future__ import annotations
@@ -100,6 +102,19 @@ def _f32s(values):
     return torch.tensor(values, dtype=F32)
 
 
+def _modes(values, scale):
+    """The four modes' `values` times `scale` (0-dim, or per clip [..., 1]
+    -> [..., 1, 4] against the modal state [..., C, 4])."""
+    return _f32s(values) * torch.as_tensor(scale)[..., None]
+
+
+def _per_clip(v):
+    """A param as float32: 0-dim as it is, per-clip [...] as [..., 1] so
+    that it broadcasts against the [..., C] sample lanes."""
+    v = as_f32(v)
+    return v[..., None] if v.ndim else v
+
+
 def _modal_coeffs(freq_hz, t60, sr):
     """2-pole modal resonator coefficients (cpp:77-89) through the pinned
     exp32/cos32: (a1, a2)."""
@@ -144,7 +159,7 @@ def material_consts(mode: int, p, sr: float, L: int):
         t_scale = jmap(tail_shape, 0.18, 0.72) * damping_mul * metal_damp
         return dict(
             f0=f0, ratios=_f32s([1.00, 2.31, 4.18, 6.87]),
-            t60s=_f32s([0.56, 0.40, 0.26, 0.17]) * t_scale,
+            t60s=_modes([0.56, 0.40, 0.26, 0.17], t_scale),
             gains=_f32s([0.34, 0.20, 0.13, 0.09]))
 
     if mode in WAVE_MODES:   # Wood (cpp:170-192) / Plastic (cpp:193-212)
@@ -157,7 +172,7 @@ def material_consts(mode: int, p, sr: float, L: int):
             body_damp = jmap(damping_amt, 1.0, 0.64)
             t_scale = jmap(tail_shape, 0.18, 0.62) * damping_mul * body_damp
             freqs = _f32s([155.0, 355.0, 690.0, 1130.0])
-            t60s = _f32s([0.40, 0.27, 0.16, 0.10]) * t_scale
+            t60s = _modes([0.40, 0.27, 0.16, 0.10], t_scale)
             gains = _f32s([0.32, 0.18, 0.10, 0.06])
             out_mix = (0.56, 0.24, 0.30, 0.74, 0.08)
             # the injection exc * (b0 + b1 * body) (cpp:180)
@@ -170,7 +185,7 @@ def material_consts(mode: int, p, sr: float, L: int):
             exc_scale = (0.20, 0.60)
             t_scale = jmap(tail_shape, 0.16, 0.72) * damping_mul
             freqs = _f32s([280.0, 690.0, 1320.0, 2360.0])
-            t60s = _f32s([0.28, 0.18, 0.11, 0.07]) * t_scale
+            t60s = _modes([0.28, 0.18, 0.11, 0.07], t_scale)
             gains = _f32s([0.34, 0.22, 0.16, 0.11])
             out_mix = (0.52, 0.36, 0.40, 0.80, 0.10)
             # plastic injects 0.14 * exc (cpp:196); as exc * (0.14 + 0 *
@@ -223,10 +238,23 @@ class StateRing:
         v1 = torch.gather(self.wg, -1, i1.long()[..., None])[..., 0]
         return v0 + frac * (v1 - v0)
 
-    def write(self, value: torch.Tensor):
-        self.wg.scatter_(-1, self.widx.long()[..., None], value[..., None])
-        nxt = self.widx + 1
-        self.widx = torch.where(nxt >= self.L, nxt - self.L, nxt)
+    def write(self, value: torch.Tensor, mask=None):
+        """Write `value` at each row's index and advance it; with `mask`
+        only the rows where it holds (the others keep their value and
+        index)."""
+        idx = self.widx.long()[..., None]
+        if mask is not None:
+            value = torch.where(mask, value, torch.gather(self.wg, -1, idx)[..., 0])
+        self.wg.scatter_(-1, idx, value[..., None])
+        self.widx = advance_index(self.widx, self.L, mask)
+
+
+def advance_index(widx, L: int, mask=None):
+    """A ring write index one step on, wrapped at L; with `mask` only where
+    it holds."""
+    nxt = widx + 1
+    nxt = torch.where(nxt >= L, nxt - L, nxt)
+    return nxt if mask is None else torch.where(mask, nxt, widx)
 
 
 def _on(tree, device):
@@ -238,7 +266,7 @@ def _on(tree, device):
 def metal_poles(mc, sr):
     """Metal's mode frequencies f0·ratios and pole radii (constant per
     block: only the angle bends per sample)."""
-    return (mc["f0"] * mc["ratios"],
+    return (torch.as_tensor(mc["f0"])[..., None] * mc["ratios"],
             _pole_radius(torch.clamp(mc["t60s"], min=f32(0.02)), sr))
 
 
@@ -299,24 +327,7 @@ def _material_substep(mode: int, p, sr: float, L: int, device,
                 lambda m: {"modal_y1": m[0], "modal_y2": m[1]})
 
     if mode in WAVE_MODES:   # Wood (cpp:170-192) / Plastic (cpp:193-212)
-        delay, damp = mc["delay_samp"], mc["damp"]
-        (wg_m0, wg_m1), (exc_s0, exc_s1) = mc["wg_mix"], mc["exc_scale"]
-        exc_b0, exc_b1 = mc["exc_b"]
-        gains, out_mix, a1, a2 = mc["gains"], mc["out_mix"], mc["a1"], mc["a2"]
-        om0, om1, om2, om3, om4 = out_mix
-
-        def step(mat, core, impact, body, trail, hp_state):
-            y1, y2, ring, prev_wave = mat
-            exc = core * (exc_s0 + exc_s1 * impact)
-            delayed = ring.read(delay)
-            new_wave = damp * (wg_m0 * delayed + wg_m1 * prev_wave) \
-                + exc * (exc_b0 + exc_b1 * body)
-            ring.write(new_wave)
-            y = exc[..., None] * gains + a1 * y1 + a2 * y2
-            modes = _serial_mode_sum(y)
-            shaped = (om0 * core + om1 * delayed + om2 * modes) \
-                * (om3 + om4 * texture)
-            return shaped, (y, y1, ring, delayed)
+        step = _wave_step(mc, texture)
 
         def extract(c):
             return (c["modal_y1"], c["modal_y2"],
@@ -349,6 +360,36 @@ def _material_substep(mode: int, p, sr: float, L: int, device,
                        c["flesh_pos_b"], c["flesh_vel_b"]), step,
             lambda m: {"flesh_pos_a": m[0], "flesh_vel_a": m[1],
                        "flesh_pos_b": m[2], "flesh_vel_b": m[3]})
+
+
+def _wave_step(mc, texture, mask=None):
+    """Wood's or plastic's per-sample step (cpp:170-212) from its constants
+    `mc` (material_consts; per clip when the traced path picks wood's or
+    plastic's constants clip by clip). With `mask` only those rows write
+    the ring and move its index."""
+    delay, damp = mc["delay_samp"], mc["damp"]
+    (wg_m0, wg_m1), (exc_s0, exc_s1) = mc["wg_mix"], mc["exc_scale"]
+    exc_b0, exc_b1 = mc["exc_b"]
+    gains, a1, a2 = mc["gains"], mc["a1"], mc["a2"]
+    om0, om1, om2, om3, om4 = mc["out_mix"]
+
+    def step(mat, core, impact, body, trail, hp_state):
+        y1, y2, ring, prev_wave = mat
+        exc = core * (exc_s0 + exc_s1 * impact)
+        delayed = ring.read(delay)
+        new_wave = damp * (wg_m0 * delayed + wg_m1 * prev_wave) \
+            + exc * (exc_b0 + exc_b1 * body)
+        if mask is None:
+            ring.write(new_wave)
+        else:
+            ring.write(new_wave, mask)
+        y = exc[..., None] * gains + a1 * y1 + a2 * y2
+        modes = _serial_mode_sum(y)
+        shaped = (om0 * core + om1 * delayed + om2 * modes) \
+            * (om3 + om4 * texture)
+        return shaped, (y, y1, ring, delayed)
+
+    return step
 
 
 def make_sample_step(consts, mat_step):
@@ -446,31 +487,30 @@ def pack_scan_carry(c, carry, pack):
 
 def static_material(params):
     """The material index when it is one value for the whole call (a
-    Python number or a one-element tensor), else None (per-clip materials,
-    JAX's traced-material path)."""
+    Python number or a one-element tensor), else None (per-clip materials:
+    :func:`process_traced`)."""
     m = params.get("material", 0)
-    if isinstance(m, (int, float)):
+    if isinstance(m, (int, float, np.integer, np.floating)):
         return int(m)
-    if isinstance(m, torch.Tensor) and m.numel() == 1:
-        return int(m)
-    return None
+    m = torch.as_tensor(m)
+    return int(m) if m.numel() == 1 else None
 
 
-def _check_shared(params):
-    for key, v in params.items():
-        if key != "material" and torch.as_tensor(v).ndim:
-            raise NotImplementedError(
-                f"texture param {key!r} is batched: per-clip texture params "
-                f"are not ported yet (ROADMAP.md, Queue 1 item 3)")
+def clip_materials(params) -> torch.Tensor:
+    """The per-clip material indices, truncated to integers and clamped to
+    0..4 as JAX's traced path does: an int64 tensor on the CPU."""
+    m = torch.as_tensor(params["material"]).detach().cpu()
+    return torch.clamp(m.to(torch.int64), 0, 4)
 
 
-def common_consts(params, sr: float, mode: int):
-    """The material-independent constants (on the CPU, 0-dim float32) and
-    the params the material models read: (consts, material params)."""
-    _check_shared(params)
+def common_consts(params, sr: float, mode=None):
+    """The material-independent constants (on the CPU, float32: 0-dim, or
+    [..., 1] for per-clip values) and the params the material models read:
+    (consts, material params). `mode` is the static material, or per-clip
+    materials [...] (the trims then go per clip)."""
 
     def get(key):
-        return torch.as_tensor(params[key], dtype=F32).cpu()
+        return _per_clip(torch.as_tensor(params[key]).detach().cpu())
 
     tail_shape, damping, weight = get("tailshape"), get("damping"), get("weight")
     texture, mix = get("texture"), get("mix")
@@ -480,9 +520,6 @@ def common_consts(params, sr: float, mode: int):
     damping_mul = jmap(damping_amt, 1.35, 0.40)                     # cpp:65
     decay = jmap(tail_shape, 0.30, 0.985) * jmap(damping_amt, 1.0, 0.80)
 
-    def scalar(v):
-        return torch.tensor(f32(v), dtype=F32)
-
     consts = dict(
         tail_shape=tail_shape, texture=texture, mix=mix, out_gain=out_gain,
         decay=decay, low_boost=1.0 + weight,                        # cpp:67
@@ -490,14 +527,22 @@ def common_consts(params, sr: float, mode: int):
         split_high=onepole_coeff(2600.0, sr),
         env_atk=tau_coeff(0.0025, sr), env_rel=tau_coeff(0.080, sr),
         wet_atk=tau_coeff(0.005, sr), wet_rel=tau_coeff(0.090, sr),
-        dc_r=scalar(0.995),
+        dc_r=torch.tensor(f32(0.995), dtype=F32),
         auto_gain_base=jmap(texture, 0.78, 0.54),                   # cpp:75
-        in_trim=scalar(MATERIAL_INPUT_TRIM[mode]),
-        mat_trim=scalar(MATERIAL_TRIM[mode]))
+        in_trim=_trim(MATERIAL_INPUT_TRIM, mode),
+        mat_trim=_trim(MATERIAL_TRIM, mode))
 
     return consts, dict(texture=texture, tailshape=tail_shape,
                         damping_amt=damping_amt, damping_mul=damping_mul,
                         weight=weight)
+
+
+def _trim(table, mode):
+    """A material's trim: one float32 value for a static `mode`, [..., 1]
+    for per-clip materials [...]."""
+    if isinstance(mode, int):
+        return torch.tensor(f32(table[mode]), dtype=F32)
+    return _f32s(table)[mode][..., None]
 
 
 def block_consts(params, sr: float, mode: int, L: int, device=None,
@@ -521,26 +566,159 @@ def block_noise(rng, channels: int, n: int):
 
 
 def require_static(params) -> int:
-    """The clamped static material, or NotImplementedError."""
+    """The clamped static material; ValueError for per-clip materials."""
     mode = static_material(params)
     if mode is None:
-        raise NotImplementedError(
-            "texture with a per-clip (traced) material is not ported yet "
-            "(ROADMAP.md, Queue 1 item 3: texture.process_traced); use "
-            "Plugin.with_static(material=m)")
+        raise ValueError("one texture material per call is needed here; "
+                         "per-clip materials take process_traced")
     return max(0, min(4, mode))
+
+
+def material_mode(params):
+    """The clamped static material (an int), or the per-clip materials
+    (``clip_materials``)."""
+    mode = static_material(params)
+    return clip_materials(params) if mode is None else max(0, min(4, mode))
 
 
 def process(params, carry, block, sr: float):
     """block [..., C, N] → (out, carry'), every state leaf with the block's
     leading batch shape. The constants are worked out on the CPU and moved
-    to the audio's device."""
+    to the audio's device. A per-clip material runs
+    :func:`process_traced`; per-clip values of the other params are
+    allowed either way."""
     block = as_f32(block)
     channels, n = block.shape[-2:]
-    mode = require_static(params)
+    mode = static_material(params)
+    if mode is None:
+        return process_traced(params, carry, block, sr)
+    mode = max(0, min(4, mode))
     white, new_rng = block_noise(carry["rng"], channels, n)
     consts, extract, mat_step, pack = block_consts(
         params, sr, mode, carry["waveguide"].shape[-1], block.device)
+    step = make_sample_step(consts, mat_step)
+    c = extract_scan_carry(carry, extract)
+    out = torch.empty_like(block)
+    for t in range(n):
+        c, out[..., t] = step(c, block[..., t], white[..., t])
+    new_carry = pack_scan_carry(c, carry, pack)
+    new_carry["rng"] = new_rng
+    return out, new_carry
+
+
+#: material_consts entries that hold one value per mode ([4] or [..., 1, 4])
+_MODE_KEYS = ("freqs", "t60s", "gains", "a1", "a2")
+
+
+def _pick(mask, a, b, modes: bool):
+    """Per clip, `a` where `mask` [..., 1] holds, else `b`; tuples element
+    by element, mode vectors against mask[..., None]."""
+    if isinstance(a, tuple):
+        return tuple(_pick(mask, x, y, False) for x, y in zip(a, b))
+    return torch.where(mask[..., None] if modes else mask,
+                       torch.as_tensor(a), torch.as_tensor(b))
+
+
+def _material_substep_traced(p, sr: float, L: int, material, device,
+                             ring=StateRing):
+    """The material update with a material per clip (`material` [...] int,
+    on the CPU): every material present runs its static step on every lane
+    and each clip keeps its own material's output and state, so a selected
+    value is bit-identical to that material's static path. Wood and plastic
+    share one ring step with each clip's own constants, and only their
+    clips write the ring and move its index.
+
+    Returns (extract, step, pack) over every material's leaves: spring
+    pos/vel, modal y1/y2, the ring (None without a wave material), the
+    previous wave sample, and flesh's four."""
+    mm = material.to(device)[..., None]
+    present = sorted(set(material.flatten().tolist()))
+    steps = {m: _material_substep(m, p, sr, L, device, ring)[1]
+             for m in present if m not in WAVE_MODES}
+    wave = [m for m in present if m in WAVE_MODES]
+    is_wg = (mm == 2) | (mm == 3)
+    wave_step = None
+    if wave:
+        mcs = {m: _on(material_consts(m, p, sr, L), device) for m in wave}
+        mc = mcs[wave[0]] if len(wave) == 1 else {
+            k: _pick(mm == 2, mcs[2][k], mcs[3][k], k in _MODE_KEYS)
+            for k in mcs[2]}
+        wave_step = _wave_step(mc, p["texture"].to(device), mask=is_wg)
+
+    def extract(c):
+        wg = ring(c["waveguide"], c["wave_idx"]) if wave else None
+        return (c["spring_pos"], c["spring_vel"], c["modal_y1"],
+                c["modal_y2"], wg, c["prev_wave"], c["flesh_pos_a"],
+                c["flesh_vel_a"], c["flesh_pos_b"], c["flesh_vel_b"])
+
+    def pack(m):
+        d = dict(zip(("spring_pos", "spring_vel", "modal_y1", "modal_y2"),
+                     m[:4]))
+        d.update(zip(("prev_wave", "flesh_pos_a", "flesh_vel_a",
+                      "flesh_pos_b", "flesh_vel_b"), m[5:]))
+        if m[4] is not None:
+            d.update(waveguide=m[4].wg, wave_idx=m[4].widx)
+        return d
+
+    def step(mat, core, impact, body, trail, hp_state):
+        pos, vel, y1, y2, wg, prev_wave, pa, va, pb, vb = mat
+        drive = (core, impact, body, trail, hp_state)
+        shaped = torch.zeros_like(core)
+        y1_new = y1
+        if 0 in steps:
+            sel = mm == 0
+            s0, (pos0, vel0) = steps[0]((pos, vel), *drive)
+            shaped = torch.where(sel, s0, shaped)
+            pos, vel = torch.where(sel, pos0, pos), torch.where(sel, vel0, vel)
+        if 1 in steps:
+            sel = mm == 1
+            s1, (y_m, _y1) = steps[1]((y1, y2), *drive)
+            shaped = torch.where(sel, s1, shaped)
+            y1_new = torch.where(sel[..., None], y_m, y1_new)
+        if wave_step is not None:
+            sw, (y_w, _y1, wg, delayed) = wave_step((y1, y2, wg, prev_wave),
+                                                    *drive)
+            shaped = torch.where(is_wg, sw, shaped)
+            y1_new = torch.where(is_wg[..., None], y_w, y1_new)
+            prev_wave = torch.where(is_wg, delayed, prev_wave)
+        if 4 in steps:
+            sel = mm == 4
+            s4, flesh = steps[4]((pa, va, pb, vb), *drive)
+            shaped = torch.where(sel, s4, shaped)
+            pa, va, pb, vb = (torch.where(sel, new, old) for new, old in
+                              zip(flesh, (pa, va, pb, vb)))
+        modal = ((mm == 1) | is_wg)[..., None]
+        y2 = torch.where(modal, y1, y2)
+        return shaped, (pos, vel, y1_new, y2, wg, prev_wave, pa, va, pb, vb)
+
+    return extract, step, pack
+
+
+def traced_block_consts(params, sr: float, L: int, device=None,
+                        ring=StateRing):
+    """:func:`block_consts` for per-clip materials (``params["material"]``
+    [...], one per clip): (consts, extract, mat_step, pack), the trims per
+    clip [..., 1]; the other params may be shared or per clip."""
+    device = torch.device("cpu") if device is None else device
+    material = clip_materials(params)
+    consts, mp = common_consts(params, sr, material)
+    extract, mat_step, pack = _material_substep_traced(
+        mp, sr, L, material, device, ring)
+    return _on(consts, device), extract, mat_step, pack
+
+
+def process_traced(params, carry, block, sr: float):
+    """Texture with a material per clip: block [..., C, N] with
+    ``params["material"]`` [...] -> (out, carry'). Every clip runs its own
+    material, bit-equal to that material's static :func:`process`; the
+    carry holds every material's leaves (init makes them all, the ring
+    sized for wood's longest delay) and a clip's other materials' leaves
+    stay as they were."""
+    block = as_f32(block)
+    channels, n = block.shape[-2:]
+    white, new_rng = block_noise(carry["rng"], channels, n)
+    consts, extract, mat_step, pack = traced_block_consts(
+        params, sr, carry["waveguide"].shape[-1], block.device)
     step = make_sample_step(consts, mat_step)
     c = extract_scan_carry(carry, extract)
     out = torch.empty_like(block)

@@ -5,18 +5,23 @@ A corpus [B, C, T] streams block by block through one plugin, or through a
 ``Chain``, on the card (or on the device the caller names); the result is
 the audio, the metrics and their corpus mean/min/max. The JAX runner's mesh has
 no counterpart on one GPU, and the 1024-clip tile alignment does not apply:
-the kernels mask the ragged edge of the batch.
+the kernels mask the ragged edge of the batch. A corpus with a texture
+material per clip is sorted by material into runs of 32 clips (the mixed
+kernels' CTAs) once, and put back in corpus order once. Automation
+curves give every block its own constants on either route.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Dict
 
 import numpy as np
 import torch
 
 from juicy_tpu_torch.runtime.device import resolve_device
-from juicy_tpu_torch.runtime.plugin import Plugin
+from juicy_tpu_torch.runtime.plugin import (Plugin, automation_curves,
+                                            params_at)
 
 
 def corpus_metrics(per_clip_metrics: Dict[str, torch.Tensor]
@@ -40,7 +45,7 @@ def _corpus_on(clips, device):
 def _stage_kernel_step(plugin: Plugin):
     """The plugin's full-stage kernel step, or None when it has none.
 
-    Punch, the saturator, texture (static material) and motion have one.
+    Punch, the saturator, texture and motion have one.
     The JAX runner sends punch and motion to XLA's stage instead
     (``juicy_tpu/parallel/corpus.py`` ``_WINNING_STAGE_KERNELS``) only
     because their Pallas kernels were no faster on a TPU: a speed choice
@@ -61,13 +66,22 @@ def run_corpus(plugin: Plugin, params, clips, use_kernel: str = "auto",
     plain PyTorch route.
 
     `use_kernel`: "auto" runs the plugin's full-stage kernel step when it has
-    one (punch, the saturator, texture with a static material, motion),
-    which launches the CUDA kernel for a CUDA corpus and runs its plain
-    version for a CPU corpus; "never" runs ``Plugin.batched_run``; "always"
-    raises unless the CUDA kernel can run. Width, cohere and infer have no
-    stage kernel and take ``batched_run`` under every setting but "always".
-    Texture with a per-clip material raises NotImplementedError (its traced
-    path is not ported).
+    one (punch, the saturator, texture, motion), which launches the CUDA
+    kernel for a CUDA corpus and runs its plain version for a CPU corpus;
+    "never" runs ``Plugin.batched_run``; "always" raises unless the CUDA
+    kernel can run. Width, cohere and infer have no stage kernel and take
+    ``batched_run`` under every setting but "always". Texture with a
+    material per clip (``params["material"]`` [B], on a
+    ``with_traced("material")`` plugin) sorts the corpus by material once
+    (``stage_kernels.material_order``: runs padded to the kernels' 32 clips
+    per CTA), takes the stage kernel's material per CTA, and puts the
+    results back in corpus order once.
+
+    `automation` ({param: [nb] curve}, one value per block for every clip)
+    runs each block with that block's values on either route: the stage
+    kernels take their constants at every launch. Texture's material
+    selects the stage kernel's code path for the whole corpus and cannot be
+    automated there.
 
     Returns (out [B, C, T], per-clip final-block metrics, corpus aggregates).
     """
@@ -77,38 +91,88 @@ def run_corpus(plugin: Plugin, params, clips, use_kernel: str = "auto",
     if use_kernel not in ("auto", "never", "always"):
         raise ValueError(f"use_kernel must be auto, never or always; got "
                          f"{use_kernel!r}")
-    if automation is not None:
-        raise NotImplementedError(
-            "run_corpus(automation=) is not ported yet (ROADMAP.md, Queue 1 "
-            "item 2: automation)")
     clips = _corpus_on(clips, device)
-    is_texture = plugin.defn.name == "texture"
-    mode = _tex.require_static(plugin.full_params(params)) if is_texture \
-        else None
+    b = clips.shape[0]
     kstep = None if use_kernel == "never" else _stage_kernel_step(plugin)
     if use_kernel == "always" and (kstep is None or not clips.is_cuda):
         raise ValueError(
             f"no stage-kernel path for {plugin.defn.name!r} on "
             f"{clips.device}: the kernels run on CUDA tensors only")
-
-    states = plugin.init_state((clips.shape[0],), clips.device)
+    p = plugin.full_params(params)
+    mode = _tex.material_mode(p) if plugin.defn.name == "texture" else None
+    if mode is not None and not isinstance(mode, int) \
+            and tuple(mode.shape) != (b,):
+        raise ValueError(f"materials of shape {tuple(mode.shape)} for a "
+                         f"corpus of {b} clips")
     if kstep is None:
-        out, _states, metrics = plugin.batched_run(params, states, clips)
+        states = plugin.init_state((b,), clips.device)
+        out, _states, metrics = plugin.batched_run(params, states, clips,
+                                                   automation=automation)
         last = {k: v[-1] for k, v in metrics.items()}
         return out, last, corpus_metrics(last)
 
-    p = plugin.full_params(params)
-    if is_texture:
+    nb = plugin.num_blocks(clips)
+    curves = automation_curves(p, automation, nb)
+    if "material" in curves:
+        raise ValueError("texture's material selects the stage kernel's "
+                         "code path for the whole corpus and cannot be "
+                         "automated there")
+    order = None if mode is None else sk.material_order(mode)
+    if order is not None:
+        clips, p, mode = order.clips(clips), order.tree(p, b), order.mode
+    states = plugin.init_state((clips.shape[0],), clips.device)
+    if mode is not None:
         # the ring goes to kernel form once per corpus, not once per block
         states["dsp"] = sk.texture_kernel_state(states["dsp"], mode)
     n = plugin.block_size
-    nb = plugin.num_blocks(clips)
     out = torch.empty_like(clips)
     for i in range(nb):
         sl = slice(i * n, (i + 1) * n)
-        out[..., sl], states, last = kstep(p, states, clips[..., sl],
-                                           plugin.sr)
+        out[..., sl], states, last = kstep(params_at(p, curves, i), states,
+                                           clips[..., sl], plugin.sr)
+    if order is not None:
+        out = order.scatter(out)
+        last = {k: order.scatter(v) for k, v in last.items()}
     return out, last, corpus_metrics(last)
+
+
+def _texture_stage(chain) -> int:
+    for i, plug in enumerate(chain.plugins):
+        if plug.defn.name == "texture":
+            return i
+    raise ValueError("chain has no texture stage to set materials for")
+
+
+def with_materials(chain, materials):
+    """A shallow copy of `chain` whose texture stage runs `materials`
+    (one per clip, [B]): bound as a static material when they are all one
+    (that material's own code path), else a per-clip row on a
+    ``with_traced("material")`` plugin."""
+    i = _texture_stage(chain)
+    values = _tex_materials(materials)
+    new = copy.copy(chain)
+    new.plugins, new.params = list(chain.plugins), list(chain.params)
+    plug = chain.plugins[i]
+    static = {k: v for k, v in plug._static.items() if k != "material"}
+    params = {k: v for k, v in chain.params[i].items() if k != "material"}
+    uniq = torch.unique(values)
+    if len(uniq) == 1:
+        new.plugins[i] = Plugin(plug.defn, plug.sr, plug.channels,
+                                plug.block_size,
+                                static=dict(static, material=int(uniq[0])))
+    else:
+        new.plugins[i] = Plugin(plug.defn, plug.sr, plug.channels,
+                                plug.block_size, static=static
+                                ).with_traced("material")
+        params["material"] = values.to(torch.float32)
+    new.params[i] = params
+    return new
+
+
+def _tex_materials(materials) -> torch.Tensor:
+    from juicy_tpu_torch.models import texture as _tex
+
+    return _tex.clip_materials({"material": materials}).reshape(-1)
 
 
 def run_corpus_chain(chain, clips, metrics: str = "final",
@@ -120,15 +184,26 @@ def run_corpus_chain(chain, clips, metrics: str = "final",
 
     `use_kernel`: "auto" takes ``chain_kernel_stream`` when
     ``supports_chain_kernel(chain)`` holds (the canonical seven-stage
-    stereo chain with a static texture material), which launches the chain
-    kernel once per block for a CUDA corpus and runs its plain version for a
-    CPU corpus, and ``fused_chain_stream`` otherwise; "never" always takes
-    ``fused_chain_stream``; "always" raises ``ChainKernelUnsupported`` unless
-    the CUDA kernel can run. No route gives way to another on a failure.
+    stereo chain; its texture material static or one per clip), which
+    launches the chain kernel once per block for a CUDA corpus and runs its
+    plain version for a CPU corpus, and ``fused_chain_stream`` otherwise;
+    "never" always takes ``fused_chain_stream``; "always" raises
+    ``ChainKernelUnsupported`` unless the CUDA kernel can run. No route
+    gives way to another on a failure.
     `metrics` is "final", "blocks" or "none" (see fused_chain_stream);
     without `return_audio` the audio is not kept and `out` is None.
-    `automation` and per-clip `materials` are not ported yet and raise
-    NotImplementedError.
+
+    `automation`: {stage index: {param: [nb] curve}} applied per block,
+    corpus-wide, on either route (the kernel reads a constant row per
+    block; texture's material cannot be automated there).
+
+    `materials`: one texture material per clip [B] (each DAW track picks
+    its own, JuicyTexture/PluginProcessor.cpp:325-337). One material binds
+    it statically; several run the chain kernel's material per CTA: the
+    clips sorted by material once per corpus (runs padded to 32 with silent
+    copies), one launch per block over the whole corpus, the outputs and
+    metrics put back in corpus order once after the stream; on "never" the
+    executor runs texture's traced model clip by clip.
 
     Returns (out [B, C, T] or None, per-stage metrics, corpus aggregates of
     the last stage's metrics, or None under "none")."""
@@ -138,24 +213,23 @@ def run_corpus_chain(chain, clips, metrics: str = "final",
     if use_kernel not in ("auto", "never", "always"):
         raise ValueError(f"use_kernel must be auto, never or always; got "
                          f"{use_kernel!r}")
-    if automation is not None:
-        raise NotImplementedError(
-            "run_corpus_chain(automation=) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 2: automation)")
-    if materials is not None:
-        raise NotImplementedError(
-            "run_corpus_chain(materials=) is not ported yet (ROADMAP.md, "
-            "Queue 1 item 3: per-clip materials)")
     clips = _corpus_on(clips, device)
+    if materials is not None:
+        values = _tex_materials(materials)
+        if values.shape[0] != clips.shape[0]:
+            raise ValueError(f"materials must have one entry per clip: "
+                             f"{values.shape[0]} vs batch {clips.shape[0]}")
+        chain = with_materials(chain, values)
     kernel = use_kernel != "never" and ck.supports_chain_kernel(chain)
     if use_kernel == "always" and not (kernel and clips.is_cuda):
         raise ck.ChainKernelUnsupported(
             f"no chain-kernel path for this chain on {clips.device}: the "
-            f"kernel takes the canonical stereo chain with a static texture "
-            f"material, on CUDA tensors")
+            f"kernel takes the canonical stereo chain with a static or "
+            f"per-clip texture material, on CUDA tensors")
     states = chain.init_state((clips.shape[0],), clips.device)
     stream = ck.chain_kernel_stream if kernel else fused_chain_stream
     out, _states, ms = stream(chain, states, clips, metrics=metrics,
-                              return_audio=return_audio)
+                              return_audio=return_audio,
+                              automation=automation)
     agg = None if ms is None else corpus_metrics(ms[-1])
     return out, ms, agg

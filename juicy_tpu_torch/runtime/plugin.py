@@ -8,6 +8,7 @@ tensors. PyTorch port of juicy_tpu/runtime/plugin.py (``Plugin`` and
   createPluginFilter()    ``Plugin(name, sr, channels, block)``
   prepareToPlay           ``plugin.init_state(batch_shape, device)``
   (static params)         ``plugin.with_static(material=2)``
+  (a per-clip material)   ``plugin.with_traced("material")``
   processBlock            ``plugin.step(params, state, block)``
   setCurrentProgram       ``plugin.preset(name_or_index)``
   a channel strip         ``Chain([(name, preset), ...], sr, ...)``
@@ -18,7 +19,8 @@ post-analyze, with the analyzer state threaded pre → post, and the metrics
 go through the plugin's ``finalize_metrics`` where it has one. Every
 function is rank-polymorphic over leading batch dims, so ``batch_step`` is
 ``step`` on a [B, C, N] block with [B]-leading state; ``run`` and
-``batched_run`` loop over blocks of ``block_size`` samples.
+``batched_run`` loop over blocks of ``block_size`` samples, with optional
+per-block parameter values (automation).
 """
 
 from __future__ import annotations
@@ -56,13 +58,29 @@ class Plugin:
         # static (code-path-selecting) params, e.g. texture's material
         self._static: Dict[str, int] = dict(static or {})
 
+    #: static params that stay in the params dict (with_traced)
+    _traced: frozenset = frozenset()
+
     def with_static(self, **static) -> "Plugin":
         """A new Plugin bound to updated static params, e.g.
         ``plug.with_static(material=2)``."""
         merged = dict(self._static)
         merged.update({k: int(v) for k, v in static.items()})
-        return Plugin(self.defn, self.sr, self.channels, self.block_size,
+        plug = Plugin(self.defn, self.sr, self.channels, self.block_size,
                       static=merged)
+        plug._traced = self._traced
+        return plug
+
+    def with_traced(self, *names: str) -> "Plugin":
+        """A new Plugin whose listed static params stay in the params dict,
+        where a batched caller may give them per clip: e.g.
+        ``Plugin("texture").with_traced("material")`` picks the material
+        clip by clip (models/texture.py::process_traced)."""
+        plug = Plugin(self.defn, self.sr, self.channels, self.block_size,
+                      static={k: v for k, v in self._static.items()
+                              if k not in names})
+        plug._traced = self._traced | frozenset(names)
+        return plug
 
     def init_state(self, batch_shape=(), device=None) -> Dict[str, Any]:
         """Fresh analyzer and DSP state, each leaf [*batch_shape, ...] on
@@ -80,17 +98,19 @@ class Plugin:
         return self._split_static(self.defn.preset_params(preset))[0]
 
     def _split_static(self, params):
-        """(params without the static ones, the static ones as ints). Pure:
-        the split is not bound to this instance (use with_static)."""
+        """(params without the static ones, the static ones as ints); traced
+        ones (with_traced) stay in the params. Pure: the split is not bound
+        to this instance (use with_static)."""
         rest = dict(params)
         static = {key: int(rest.pop(key)) for key in self.defn.static_params
-                  if key in rest}
+                  if key in rest and key not in self._traced}
         return rest, static
 
     def full_params(self, params):
         """The params the DSP reads: `params` plus the static ones."""
         merged = dict(params)
-        merged.update(self._static)
+        merged.update({k: v for k, v in self._static.items()
+                       if k not in self._traced})
         return merged
 
     def step(self, params, state, block):
@@ -106,10 +126,13 @@ class Plugin:
     def batch_step(self, params, state, blocks, params_batched: bool = False):
         """`step` over a leading clips axis of `blocks` [B, C, N] and of every
         state leaf. `params` leaves are shared 0-dim tensors unless
-        `params_batched`, in which case each carries a leading [B]."""
+        `params_batched`, in which case each carries a leading [B]; a static
+        param that is not bound (with_traced, texture's material) may carry
+        [B] either way."""
         if blocks.ndim != 3:
             raise ValueError(f"expected blocks [B, C, N], got {tuple(blocks.shape)}")
-        _check_params(params, blocks.shape[0] if params_batched else None)
+        _check_params(params, blocks.shape[0], params_batched,
+                      set(self.defn.static_params) - set(self._static))
         return self.step(params, state, blocks)
 
     def run(self, params, state, audio,
@@ -120,29 +143,36 @@ class Plugin:
         Returns (out [..., C, T], final state, metrics stacked [nb, ...])."""
         nb = self.num_blocks(audio)
         n = self.block_size
-        automation = automation or {}
+        curves = automation_curves(self.full_params(params), automation, nb)
         outs, metrics = [], []
         for i in range(nb):
-            p = dict(params)
-            p.update({k: v[i] for k, v in automation.items()})
-            out, state, m = self.step(p, state, audio[..., i * n:(i + 1) * n])
+            out, state, m = self.step(params_at(params, curves, i), state,
+                                      audio[..., i * n:(i + 1) * n])
             outs.append(out)
             metrics.append(m)
         return torch.cat(outs, dim=-1), state, _stack(metrics)
 
-    def batched_run(self, params, states, clips, params_batched: bool = False):
+    def batched_run(self, params, states, clips, params_batched: bool = False,
+                    automation: Optional[Dict[str, Any]] = None):
         """Stream a [B, C, T] corpus block by block through `batch_step`.
-        Returns (out [B, C, T], final states, metrics stacked [nb, B])."""
+        `automation` maps param ids to per-block values [T // block_size],
+        each block's value shared by every clip. Returns (out [B, C, T],
+        final states, metrics stacked [nb, B])."""
         if clips.ndim != 3:
             raise ValueError(f"expected clips [B, C, T], got {tuple(clips.shape)}")
         nb = self.num_blocks(clips)
         n = self.block_size
+        b = clips.shape[0]
+        curves = automation_curves(self.full_params(params), automation, nb)
         out = torch.empty_like(clips)
         metrics = []
         for i in range(nb):
             sl = slice(i * n, (i + 1) * n)
+            p = params_at(params, curves, i)
+            if params_batched:      # a block's value for every clip
+                p.update({k: torch.broadcast_to(p[k], (b,)) for k in curves})
             out[..., sl], states, m = self.batch_step(
-                params, states, clips[..., sl], params_batched=params_batched)
+                p, states, clips[..., sl], params_batched=params_batched)
             metrics.append(m)
         return out, states, _stack(metrics)
 
@@ -234,12 +264,37 @@ class Chain:
         return out, new_states, metrics
 
 
-def _check_params(params, batch: Optional[int]):
+def automation_curves(params, automation, nb: int):
+    """`automation` ({param id: curve}) checked against `params` and the
+    block count: each curve a float32 tensor [nb] on the CPU."""
+    curves = {}
+    for key, v in (automation or {}).items():
+        if key not in params:
+            raise KeyError(f"no parameter {key!r} to automate")
+        v = torch.as_tensor(v, dtype=torch.float32).detach().cpu()
+        if tuple(v.shape) != (nb,):
+            raise ValueError(f"automation curve for {key!r} must have one "
+                             f"value per block, shape ({nb},), got "
+                             f"{tuple(v.shape)}")
+        curves[key] = v
+    return curves
+
+
+def params_at(params, curves, i: int):
+    """`params` with the automation curves' values at block `i`."""
+    p = dict(params)
+    p.update({k: v[i] for k, v in curves.items()})
+    return p
+
+
+def _check_params(params, batch: int, batched: bool, traced=()):
     for k, v in params.items():
         shape = tuple(torch.as_tensor(v).shape)
-        want = () if batch is None else (batch,)
-        if shape != want:
-            raise ValueError(f"param {k!r} has shape {shape}, expected {want}")
+        want = {(batch,)} if batched else {(), (batch,)} if k in traced \
+            else {()}
+        if shape not in want:
+            raise ValueError(f"param {k!r} has shape {shape}, expected "
+                             f"{' or '.join(map(str, sorted(want)))}")
 
 
 def _stack(metrics):

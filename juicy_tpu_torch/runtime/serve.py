@@ -22,10 +22,19 @@ The tick's route:
 - any other chain or metrics mode takes ``fused_chain_step``, with [S]
   rows for the edited knobs.
 
+Per-stream texture materials: a chain whose texture stage keeps `material`
+as a param (``Plugin.with_traced("material")``) makes it a per-slot row
+like any knob, and its pool ticks on ``fused_chain_step``, where texture's
+traced model runs each slot's own material (as JAX's server sends such
+pools to its fused executor). The mixed chain kernel wants the 32 slots of
+each CTA to share a material; a tenant may change its material at any
+tick and slots are claimed in any order, so keeping that would mean moving
+slots' states between CTAs on edits and opens. That is not done here.
+
 The pool lives on `device`: None is the card (and raises without one),
 ``"cpu"`` the plain routes. The assembly buffer stays on the host; a CUDA
 pool copies it through pinned memory. Not ported: ``mesh=`` (one pool on
-one card) and per-stream texture materials.
+one card).
 """
 
 from __future__ import annotations
@@ -61,12 +70,6 @@ class StreamServer:
             raise NotImplementedError(
                 "StreamServer(mesh=) is not ported: one pool serves on one "
                 "card (ROADMAP.md, Queue 1 item 9: more than one GPU)")
-        for plug, params in zip(chain.plugins, chain.params):
-            if plug.defn.name == "texture" and "material" in params:
-                raise NotImplementedError(
-                    "per-stream texture materials (a traced material) are "
-                    "not ported yet (ROADMAP.md, Queue 1 item 3: "
-                    "texture.process_traced); bind a static material")
         if metrics not in ("blocks", "final", "none"):
             raise ValueError(f"metrics must be blocks, final or none; got "
                              f"{metrics!r}")
@@ -94,7 +97,10 @@ class StreamServer:
 
         # the pool's state: Chain form, or on a CUDA kernel pool the
         # analyzers in Chain form and every DSP state in the KernelChain
-        self._kernel_tick = metrics == "blocks" and \
+        # per-stream materials (a traced material) tick on the executor
+        traced = any(plug.defn.name == "texture" and "material" in params
+                     for plug, params in zip(chain.plugins, chain.params))
+        self._kernel_tick = metrics == "blocks" and not traced and \
             ck.supports_chain_kernel(chain)
         self._fresh = chain.init_state((1,), self.device)
         states = chain.init_state((s,), self.device)

@@ -299,9 +299,9 @@ def test_torch_chain_constants():
 
 def test_torch_supports_chain_kernel():
     """The cases of tests/test_chain_kernel.py that apply: the canonical
-    chain (any static material) yes; one stage, a reordered chain, mono, a
-    batched param or per-clip materials no (the port has no packed-material
-    lane: per-clip materials are ROADMAP.md Queue 1 item 3)."""
+    chain (any static material, or per-clip materials: the kernel's
+    material per CTA) yes; one stage, a reordered chain, mono or a batched
+    param other than the material no."""
     assert ck.supports_chain_kernel(TChain(_stages(), SR, 2, N))
     assert ck.supports_chain_kernel(TChain(_stages(2), SR, 2, N))
     assert not ck.supports_chain_kernel(TChain([("punch", None)], SR, 2, N))
@@ -315,6 +315,8 @@ def test_torch_supports_chain_kernel():
     stages[2] = ("texture", None)              # no static material bound
     mixed = TChain(stages, SR, 2, N)
     mixed.params[2] = dict(mixed.params[2], material=torch.tensor([0., 1.]))
+    assert ck.supports_chain_kernel(mixed)
+    mixed.params[2] = dict(mixed.params[2], mix=torch.full((2,), 0.5))
     assert not ck.supports_chain_kernel(mixed)
 
 
@@ -323,7 +325,9 @@ def test_torch_run_corpus_chain_routes():
     and equals "never" (the block-major executor); without audio the
     metrics stay and `out` is None; "none" has no aggregates; "always"
     raises on a CPU corpus and on a reordered chain; automation= and
-    materials= are not ported."""
+    materials= take the same routes (each equal to "never" here; against
+    JAX in tests/test_torch_automation.py and test_torch_materials.py), and
+    texture's material cannot be automated on the kernel."""
     chain = TChain(_stages(), SR, 2, N)
     clips = burst_clips(4, 6, 2, 2 * N)
     before = ck.chain_kernel_step.launches
@@ -351,11 +355,17 @@ def test_torch_run_corpus_chain_routes():
     reordered = TChain(_stages(order=(0, 2, 1, 3, 4, 5, 6)), SR, 2, N)
     with pytest.raises(ck.ChainKernelUnsupported):
         run_corpus_chain(reordered, clips, use_kernel="always", device="cpu")
-    with pytest.raises(NotImplementedError, match="automation"):
-        run_corpus_chain(chain, clips, automation={0: {"mix": [0.5, 0.5]}},
+    for kw in ({"automation": {0: {"mix": [0.5, 0.9]}}},
+               {"materials": np.arange(6) % 5}):
+        out_k, ms_k, _ = run_corpus_chain(chain, clips, device="cpu", **kw)
+        out_n, ms_n, _ = run_corpus_chain(chain, clips, use_kernel="never",
+                                          device="cpu", **kw)
+        assert torch.equal(out_k, out_n) and not torch.equal(out_k, out_a)
+        for m, m_n in zip(ms_k, ms_n, strict=True):
+            assert_metrics_close(to_numpy(m), to_numpy(m_n), tol=1e-6)
+    with pytest.raises(ck.ChainKernelUnsupported, match="automated"):
+        run_corpus_chain(chain, clips, automation={2: {"material": [1, 2]}},
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="materials"):
-        run_corpus_chain(chain, clips, materials=np.zeros(6), device="cpu")
     with pytest.raises(ValueError):
         ck.chain_kernel_stream(chain, chain.init_state((6,), "cpu"),
                                torch.from_numpy(clips).to("meta"))

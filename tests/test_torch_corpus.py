@@ -82,8 +82,13 @@ def test_torch_run_corpus_refusals():
     clips = torch.zeros((4, 2, 2 * N))
     with pytest.raises(ValueError, match="CUDA"):
         run_corpus(plug, params, clips, use_kernel="always", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_corpus(plug, params, clips, automation={"drive": torch.zeros(2)},
+    # automation takes the stage kernel too, which "always" finds only on
+    # a CUDA corpus; a curve needs one value per block
+    with pytest.raises(ValueError, match="CUDA"):
+        run_corpus(plug, params, clips, automation={"drive": torch.ones(2)},
+                   use_kernel="always", device="cpu")
+    with pytest.raises(ValueError, match="one value per block"):
+        run_corpus(plug, params, clips, automation={"drive": torch.zeros(3)},
                    device="cpu")
     with pytest.raises(ValueError):
         run_corpus(plug, params, clips, use_kernel="sometimes", device="cpu")
@@ -184,10 +189,16 @@ def test_torch_run_corpus_texture_refusals():
     with pytest.raises(ValueError, match="CUDA"):
         run_corpus(plug, plug.default_params(), clips, use_kernel="always",
                    device="cpu")
+    # per-clip materials run (tests/test_torch_materials.py); the kernel
+    # needs the card, and the row one material per clip
     traced = dict(plug.default_params(), material=torch.tensor([0., 1., 2., 4.]))
+    with pytest.raises(ValueError, match="CUDA"):
+        run_corpus(TPlugin("texture", SR, 2, N), traced, clips,
+                   use_kernel="always", device="cpu")
     for use_kernel in ("auto", "never"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_corpus(TPlugin("texture", SR, 2, N), traced, clips,
+        with pytest.raises(ValueError, match="materials"):
+            run_corpus(TPlugin("texture", SR, 2, N),
+                       dict(traced, material=torch.zeros(3)), clips,
                        use_kernel=use_kernel, device="cpu")
 
 

@@ -420,6 +420,31 @@ def test_punch_motion_run_corpus_always_on_card(name, preset, cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name,preset,auto", [
+    ("punch", "Crater Impact", {"punch": [0.2, 1.4, 0.7]}),
+    ("saturator", "Velvet Burn", {"drive": [3.0, 15.0, 9.0]})])
+def test_run_corpus_automation_always_on_card(name, preset, auto,
+                                              cuda_device):
+    """run_corpus(automation=) on the stage kernel: one launch per block,
+    each with its block's constants, equal to "never" (batched_run with
+    the same curves); the curves move the render."""
+    plug = Plugin(name, SR, 2, N)
+    params = _params(plug, preset)
+    step = getattr(sk, f"{name}_stage_step")
+    clips = _clips(5, 2, 3, cuda_device)
+    before = step.launches
+    out_k, last_k, _ = run_corpus(plug, params, clips, use_kernel="always",
+                                  automation=auto)
+    assert step.launches == before + 3
+    out_n, last_n, _ = run_corpus(plug, params, clips, use_kernel="never",
+                                  automation=auto)
+    assert torch.equal(out_k, out_n)
+    assert float((last_k["score"] - last_n["score"]).abs().max()) <= 1e-4
+    flat, _last, _agg = run_corpus(plug, params, clips, use_kernel="always")
+    assert not torch.equal(out_k, flat)
+
+
+@pytest.mark.cuda
 def test_chain_on_card_matches_cpu(cuda_device):
     """The seven-stage Chain's batched_run on the card against the same call
     on the CPU: audio within -100 dBFS, every stage's metrics within 1e-5
@@ -794,3 +819,228 @@ def test_stream_server_on_card(cuda_device):
     for want, handle in pending:
         for a, b in zip(handle.result(), want):
             assert np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Per-clip texture materials (the mixed kernels, a material per CTA) and
+# per-block automation of the chain kernel
+# ---------------------------------------------------------------------------
+
+def _traced_chain(materials, learn=True):
+    """bench.py's chain (as _chain) whose texture stage takes a material
+    per clip."""
+    chain = _chain(0, learn=learn)
+    chain.plugins[2] = Plugin("texture", SR, 2, N).with_traced("material")
+    chain.params[2] = dict(
+        {k: v for k, v in chain.params[2].items() if k != "material"},
+        material=torch.as_tensor(np.asarray(materials), dtype=torch.float32))
+    return chain
+
+
+def _raw_chain(route, chain, st0, clips, automation=None):
+    """The chain kernel's raw route ("cuda" or "plain") over `clips`, the
+    clips sorted by material where the CTAs need it: [audio, every DSP
+    state leaf, fin, acc, context fit]."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.runtime.chain_fused import chain_automation
+
+    run = ck._run_cuda if route == "cuda" else ck._run_plain
+    curves = chain_automation(chain, automation, clips.shape[-1] // N)
+    out, dsps, fin, acc, fit = ck._ordered(run, chain, list(st0), clips, True,
+                                           None, curves)
+    return [out, *[d[k] for d in dsps for k in sorted(d)], fin, acc, fit]
+
+
+def _assert_all_equal(got, want):
+    """Every tensor equal bit for bit, NaN where the other has NaN."""
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype, i
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                   msg=f"tensor {i}")
+
+
+#: (materials, batch): CTA-uniform runs (gel, wood, flesh, plastic, metal),
+#: and a ragged corpus whose material runs are not multiples of 32 (sorted
+#: and padded by the wrapper)
+_MIXED_CASES = [("runs", 160), ("ragged", 100), ("ragged", 301)]
+
+
+def _mixed_materials(kind, batch, seed=0):
+    if kind == "runs":
+        return np.repeat([0, 2, 4, 3, 1], 32)[:batch]
+    return np.random.default_rng(seed).integers(0, 5, batch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,batch", _MIXED_CASES)
+def test_chain_kernel_mixed_matches_plain(kind, batch, cuda_device):
+    """The mixed chain kernel (a material per CTA) against its plain version
+    over two blocks: audio, every state leaf and both lanes of every stage
+    bit-equal; one launch per block over the whole corpus."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    mats = _mixed_materials(kind, batch)
+    chain = _traced_chain(mats)
+    clips = _bursts(90, 2, cuda_device, batch=batch)
+    st0 = chain.init_state((batch,), cuda_device)
+    before = ck.chain_kernel_step.launches
+    got = _raw_chain("cuda", chain, st0, clips)
+    assert ck.chain_kernel_step.launches == before + 2
+    _assert_all_equal(got, _raw_chain("plain", chain, st0, clips))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("material", [0, 1, 2, 3, 4])
+def test_chain_kernel_mixed_uniform_equals_static(material, cuda_device):
+    """A uniform material array through the mixed kernel equals the static
+    instantiation's launch bit for bit (audio, state, lanes)."""
+    chain_m = _traced_chain(np.full(RAGGED[0], material))
+    chain_s = _chain(material)
+    clips = _bursts(91, 2, cuda_device, batch=RAGGED[0])
+    st0 = chain_s.init_state((RAGGED[0],), cuda_device)
+    _assert_all_equal(_raw_chain("cuda", chain_m, st0, clips),
+                      _raw_chain("cuda", chain_s, st0, clips))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixed", [False, True])
+def test_chain_kernel_automation_matches_plain(mixed, cuda_device):
+    """The automated chain stream (a constant row per block; per clip and
+    per block with mixed materials) against its plain version, bit for bit;
+    the curves move the render."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    batch = RAGGED[0]
+    chain = _traced_chain(_mixed_materials("ragged", batch, 3)) if mixed \
+        else _chain(2)
+    auto = {0: {"mix": [0.3, 0.9, 0.6]}, 1: {"drive": [3.0, 15.0, 9.0]},
+            6: {"sensitivity": [0.5, 1.5, 1.0]}}
+    clips = _bursts(92, 3, cuda_device, batch=batch)
+    st0 = chain.init_state((batch,), cuda_device)
+    got = _raw_chain("cuda", chain, st0, clips, auto)
+    _assert_all_equal(got, _raw_chain("plain", chain, st0, clips, auto))
+    flat = _raw_chain("cuda", chain, st0, clips)
+    assert not torch.equal(got[0], flat[0])
+    out, _st, ms = ck.chain_kernel_stream(chain, st0, clips, automation=auto)
+    out_p, _st, ms_p = ck.chain_kernel_stream_plain(chain, st0, clips,
+                                                    automation=auto)
+    assert torch.equal(out, out_p) and torch.equal(ms[-1]["score"],
+                                                   ms_p[-1]["score"])
+
+
+def _tex_mixed_case(kind, batch, channels, sr, device, nan=False):
+    """A texture batch with a material per clip in the mixed kernel's
+    order (MaterialOrder) and its plugin, params and kernel-form state."""
+    mats = torch.from_numpy(_mixed_materials(kind, batch, 7))
+    order = sk.MaterialOrder(mats)
+    plug = Plugin("texture", sr, channels, N).with_traced("material")
+    params = plug.full_params(dict(plug.default_params(),
+                                   material=order.mode.float()))
+    clips = order.clips(_clips(11, channels, 2, device, batch))
+    if nan:
+        clips[len(order.take) // 2, 0, 100] = float("nan")
+    st = plug.init_state((len(order.take),), device)
+    st["dsp"] = sk.texture_kernel_state(st["dsp"], order.mode)
+    return order, params, clips, st
+
+
+def _raw_tex(route, params, st, clips, mode, sr=SR):
+    """Two blocks through the texture kernel's raw route: [audio, every
+    state leaf, both lanes] of each."""
+    fn = getattr(sk, f"_tex_lanes_{route}")
+    dsp = dict(st["dsp"])
+    dsp["waveguide"] = dsp["waveguide"].clone()
+    lane0 = sk.pack_lane(st["analyzer"], clips.shape[0])
+    res = []
+    for k in range(2):
+        out, dsp, *lanes = fn(clips[..., k * N:(k + 1) * N], dsp, lane0,
+                              params, sr, mode)
+        res += [out, *[dsp[key] for key in sorted(dsp)], *lanes]
+        lane0 = lanes[2]
+    return res
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2])
+@pytest.mark.parametrize("kind,batch", _MIXED_CASES)
+def test_texture_stage_kernel_mixed_matches_plain(kind, batch, channels,
+                                                  cuda_device):
+    """The mixed texture stage kernel (a material per CTA, each CTA's shared
+    memory laid out for its material) against its plain version (the traced
+    model) over two blocks: audio, every state leaf and both lanes
+    bit-equal; the non-wave clips' ring index untouched."""
+    order, params, clips, st = _tex_mixed_case(kind, batch, channels, SR,
+                                               cuda_device)
+    before = sk.texture_stage_step.launches
+    got = _raw_tex("cuda", params, st, clips, order.mode)
+    assert sk.texture_stage_step.launches == before + 2
+    _assert_all_equal(got, _raw_tex("plain", params, st, clips, order.mode))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("material", [0, 1, 2, 3, 4])
+def test_texture_stage_kernel_mixed_uniform_equals_static(material,
+                                                          cuda_device):
+    """A uniform material array through the mixed texture kernel equals the
+    static instantiation's launch bit for bit."""
+    plug = Plugin("texture", SR, 2, N).with_static(material=material)
+    params = plug.full_params(plug.default_params())
+    clips = _clips(12, 2, 2, cuda_device, RAGGED[0])
+    st0 = plug.init_state((RAGGED[0],), cuda_device)
+    mode = torch.full((RAGGED[0],), material, dtype=torch.int64)
+    st_m = {"analyzer": st0["analyzer"],
+            "dsp": sk.texture_kernel_state(st0["dsp"], mode)}
+    _assert_all_equal(
+        _raw_tex("cuda", dict(params, material=mode.float()), st_m, clips,
+                 mode),
+        _raw_tex("cuda", params, _kernel_form(st0, material), clips,
+                 material))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("channels", [1, 2])
+def test_mixed_kernels_keep_nan_plastic_2khz(channels, cuda_device):
+    """Plastic at 2 kHz (its filters past Nyquist, the output turning NaN)
+    beside the other materials, one NaN sample in a mixed batch's clip: the
+    mixed texture kernel NaN where its plain version is NaN and every other
+    value equal."""
+    sr = 2000.0
+    order, params, clips, st = _tex_mixed_case("ragged", RAGGED[0], channels,
+                                               sr, cuda_device, nan=True)
+    got = _raw_tex("cuda", params, st, clips, order.mode, sr)
+    _assert_all_equal(got, _raw_tex("plain", params, st, clips, order.mode,
+                                    sr))
+    assert bool(torch.isnan(got[0]).any())
+
+
+@pytest.mark.cuda
+def test_mixed_materials_run_corpus_on_card(cuda_device):
+    """run_corpus_chain(materials=) and run_corpus on a traced texture
+    plugin with "always": one launch per block over the sorted corpus, the
+    result in corpus order equal to "auto" and within -100 dBFS and 1e-3
+    (last-block scores) of "never"."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.parallel.corpus import run_corpus_chain
+
+    mats = _mixed_materials("ragged", 70, 5)
+    chain = _chain(0, learn=False)
+    clips = _bursts(61, 3, cuda_device, batch=70)
+    before = ck.chain_kernel_step.launches
+    out_k, ms_k, _ = run_corpus_chain(chain, clips, use_kernel="always",
+                                      materials=mats)
+    assert ck.chain_kernel_step.launches == before + 3
+    out_n, ms_n, _ = run_corpus_chain(chain, clips, use_kernel="never",
+                                      materials=mats)
+    assert float((out_k.double() - out_n.double()).abs().max()) <= 1e-5
+    assert float((ms_k[-1]["score"] - ms_n[-1]["score"]).abs().max()) <= 1e-3
+    plug = Plugin("texture", SR, 2, N).with_traced("material")
+    params = dict(plug.default_params(),
+                  material=torch.as_tensor(mats, dtype=torch.float32))
+    before = sk.texture_stage_step.launches
+    out_k, last_k, _ = run_corpus(plug, params, clips, use_kernel="always")
+    assert sk.texture_stage_step.launches == before + 3
+    out_n, last_n, _ = run_corpus(plug, params, clips, use_kernel="never")
+    assert float((out_k.double() - out_n.double()).abs().max()) <= 1e-5
+    assert float((last_k["score"] - last_n["score"]).abs().max()) <= 1e-3

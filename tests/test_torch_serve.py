@@ -26,8 +26,9 @@ numpy seeds); JAX's run is made in one process without FMA contraction
 Each test also makes the checks of its JAX counterpart on the port alone,
 and the port's own: ``chain_kernel_step(params_rows=)`` with every row equal
 is the shared step bit for bit, each per-slot setting gives what a chain of
-that setting gives alone, the per-row delay checks raise, and ``mesh=`` and
-a traced material raise NotImplementedError naming their ROADMAP items. The
+that setting gives alone, the per-row delay checks raise, ``mesh=`` raises
+NotImplementedError naming its ROADMAP item, and a traced material takes
+the block-major executor. The
 CUDA pool is held to the CPU pool on the card in tests/test_torch_cuda.py.
 """
 
@@ -597,16 +598,17 @@ def test_torch_param_rows_edited_in_place():
 
 
 def test_torch_stream_server_not_ported_raise():
-    """mesh= (more than one GPU) and a traced texture material name their
-    ROADMAP items; the pool runs on the card unless asked for the CPU."""
+    """mesh= (more than one GPU) names its ROADMAP item; a traced texture
+    material (per-stream materials, tests/test_torch_materials.py) is
+    served on the block-major executor; the pool runs on the card unless
+    asked for the CPU."""
     with pytest.raises(NotImplementedError, match="item 9"):
         StreamServer(Chain(STAGES, SR, 2, BLOCK), 2, mesh=object(),
                      device="cpu")
     chain = Chain([("punch", None), ("texture", None), ("infer", None)],
                   SR, 2, BLOCK)
     chain.params[1]["material"] = torch.tensor(0.0)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        StreamServer(chain, 2, device="cpu")
+    assert not StreamServer(chain, 2, device="cpu")._kernel_tick
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             StreamServer(Chain(STAGES, SR, 2, BLOCK), 2)

@@ -358,8 +358,9 @@ def test_torch_texture_wrapper_dispatch():
     with pytest.raises(ValueError, match="batched"):
         tsk.texture_stage_step(dict(params, texture=torch.full((3,), 0.5)),
                                st, blk, SR)
-    with pytest.raises(NotImplementedError):
-        tsk.texture_stage_step(dict(params, material=torch.tensor([0, 1, 4])),
+    # a material per clip runs (tests/test_torch_materials.py), one per clip
+    with pytest.raises(ValueError, match="materials"):
+        tsk.texture_stage_step(dict(params, material=torch.tensor([0, 4])),
                                st, blk, SR)
     with pytest.raises(ValueError):
         tsk.texture_stage_step(params, st, blk.double(), SR)

@@ -173,14 +173,21 @@ def test_torch_texture_static_params():
 
 
 def test_torch_texture_refusals():
-    """A per-clip (traced) material and per-clip params are not ported."""
+    """A per-clip (traced) material and per-clip params run (against JAX in
+    tests/test_torch_materials.py); what is refused: a static material
+    where one is required, and a param whose batch is not the block's."""
     tp = TPlugin("texture", SR, 2, N)
     state = tp.init_state((2,), "cpu")
     blk = torch.zeros((2, 2, N))
     traced = dict(tp.default_params(), material=torch.tensor([0.0, 2.0]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttex.process(traced, state["dsp"], blk, SR)
+    out, _ = ttex.process(traced, state["dsp"], blk, SR)
+    assert out.shape == blk.shape
+    with pytest.raises(ValueError, match="per-clip"):
+        ttex.require_static(traced)
     batched = {k: torch.stack([v, v]) for k, v in tp.default_params().items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.with_static(material=1).batch_step(batched, state, blk,
-                                              params_batched=True)
+    tp.with_static(material=1).batch_step(batched, state, blk,
+                                          params_batched=True)
+    with pytest.raises(ValueError, match="shape"):
+        tp.with_static(material=1).batch_step(
+            {k: torch.stack([v] * 3) for k, v in batched.items()}, state,
+            blk, params_batched=True)

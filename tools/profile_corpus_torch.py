@@ -1,7 +1,8 @@
 """Where the time of the port's corpus scoring goes, on one NVIDIA GPU.
 
     python3 tools/profile_corpus_torch.py [--plugin texture --material 1]
-    python3 tools/profile_corpus_torch.py --plugin chain
+    python3 tools/profile_corpus_torch.py --plugin chain [--mixed]
+    python3 tools/profile_corpus_torch.py --plugin texture --mixed
     python3 tools/profile_corpus_torch.py --plugin serve
 
 Runs ``juicy_tpu_torch.parallel.corpus.run_corpus`` at chip_smoke.py's full
@@ -12,11 +13,14 @@ bench.py's seven-stage chain as chip_smoke.py's phase 4e runs it (8192
 clips, the burst input, ``metrics="final"``), or with ``--plugin serve`` 30
 serving ticks (``submit_many`` and ``tick_arrays``) of a ``StreamServer`` on
 that chain with all of chip_smoke.py's 4096 slots open, fed its PCM16 burst
-input: one warm-up run, one timed run, then one run under
+input. ``--mixed`` gives the corpus a texture material per clip
+(``arange(B) % 5``, bench.py's ``bench_mixed_materials``; the chain without
+its audio, as there): one warm-up run, one timed run, then one run under
 ``torch.profiler``. Prints the card's name and power limit, the timed and
 profiled walls, the profiled run's device busy time (the sum of its
-kernels' times) by kernel name, its count of ``cudaLaunchKernel`` calls, and
-its device idle share: one minus busy over that same run's wall. The
+kernels' times) by kernel name, its host ops by their own host time, its
+count of ``cudaLaunchKernel`` calls, and its device idle share: one minus
+busy over that same run's wall. The
 profiler's own host cost is in that wall, so the share is an upper bound
 for the unprofiled run. Needs a CUDA device; imports no JAX.
 """
@@ -45,6 +49,7 @@ def main(argv=None):
                                          "motion", "chain", "serve"),
                     default="texture")
     ap.add_argument("--material", type=int, default=1)
+    ap.add_argument("--mixed", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_corpus_torch: needs a CUDA device")
@@ -61,21 +66,28 @@ def main(argv=None):
         clips = make_clicks(batch, CHANNELS, NUM_BLOCKS * BLOCK, device,
                             seed=31)
 
+        kw = {"materials": torch.arange(batch) % 5,
+              "return_audio": False} if args.mixed else {}
+
         def run():
-            run_corpus_chain(chain, clips)
+            run_corpus_chain(chain, clips, **kw)
             torch.cuda.synchronize()
 
-        profile_run(run, "chain", batch)
+        profile_run(run, "chain, mixed materials" if args.mixed else "chain",
+                    batch)
         return
     if args.plugin == "serve":
         profile_serve(device)
         return
     plugin = Plugin(args.plugin, SR, CHANNELS, BLOCK)
     if args.plugin == "texture":
-        plugin = plugin.with_static(material=args.material)
+        plugin = plugin.with_traced("material") if args.mixed else \
+            plugin.with_static(material=args.material)
     params = {"saturator": lambda: plugin.preset(PRESET),
               "punch": lambda: plugin.preset(PUNCH_PRESET)}.get(
                   args.plugin, plugin.default_params)()
+    if args.mixed:
+        params["material"] = (torch.arange(BATCH) % 5).float()
     if args.plugin in ("punch", "motion"):
         clips = make_clicks(BATCH, CHANNELS, NUM_BLOCKS * BLOCK, device,
                             seed=23)
@@ -86,9 +98,9 @@ def main(argv=None):
         run_corpus(plugin, params, clips)
         torch.cuda.synchronize()
 
-    profile_run(run, args.plugin + (f" material {args.material}"
-                                    if args.plugin == "texture" else ""),
-                batch)
+    what = "mixed materials" if args.mixed else f"material {args.material}"
+    profile_run(run, args.plugin + (f" {what}" if args.plugin == "texture"
+                                    else ""), batch)
 
 
 def profile_serve(device):
@@ -138,6 +150,12 @@ def profile_run(run, tag, batch, blocks=NUM_BLOCKS):
           f"profiled wall {prof_wall:.4f} s, device busy {busy:.4f} s, "
           f"cudaLaunchKernel {launches}")
     for key, t, count in device[:10]:
+        print(f"  {t / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
+    host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in events
+                   if e.device_type == DeviceType.CPU
+                   and e.self_cpu_time_total > 0), key=lambda r: -r[1])
+    print("host ops by their own host time:")
+    for key, t, count in host[:12]:
         print(f"  {t / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
     print(f"device idle {100 * (1 - busy / prof_wall):.1f}% of the profiled "
           f"run's wall")
