@@ -48,11 +48,14 @@ on the card from a seed. Phases, each of which raises on failure:
     3b; the same bars at a ragged B = 100 (its last CTA partly past B); and
     the kernel's geometry (clips and warps per CTA, registers, shared
     memory, resident CTAs per SM; no spills);
-3f. ``analyze_fused`` (csrc/analyzer.cu), two blocks at B = 4096, N = 512
-    on the burst input, one launch each and no other kernel; against its
-    plain version: the lanes (fin, acc) bit-equal, cooldowns equal, metrics
-    within 1e-5; its time per block alone, with the layout, the whole step
-    and the plain version's;
+3f. ``analyze_fused`` (csrc/analyzer.cu), two blocks of N = 512 on the
+    burst input at B = 4096 and 8192 and a ragged B = 100, mono and
+    stereo, one launch per block and no other kernel; against its plain
+    version: the lanes (fin, acc) bit-equal, cooldowns equal, metrics
+    within 1e-5; the kernel's geometry (no spills); its time per block
+    alone and through the wrapper (the block in its own layout) at B =
+    4096 and 8192, mono and stereo, with its bound; the whole step's and
+    the plain version's at B = 4096;
 3g. ``saturator_step_fused`` the same way (one launch of
     csrc/saturator_stage.cu per block under its own count), bit for bit
     against its plain version and against ``saturator_stage_step``;
@@ -1666,30 +1669,37 @@ def check_all(tag, got, want, tol):
     return worst
 
 
-def phase_analyze_fused(device):
-    """3f: analyze_fused, two blocks at B = 4096, N = 512 on the burst
-    input, counted; then against its plain version: fin/acc bit-equal,
-    cooldowns equal, metrics within 1e-5; the times per block."""
+#: 3f's (batch, channels): the main width and twice it, mono and stereo,
+#: and a ragged batch
+ANALYZER_CASES = ((BATCH, 2), (CHAIN_CORPUS_BATCH, 2), (BATCH, 1),
+                  (CHAIN_CORPUS_BATCH, 1), (RAGGED_BATCH, 2),
+                  (RAGGED_BATCH, 1))
+
+
+def analyzer_vs_plain(device, b, c):
+    """analyze_fused on two blocks of the burst input [b, c, 2N], counted
+    (one launch per block and no other kernel); the lanes (fin, acc)
+    bit-equal to the plain version's, the cooldowns equal, the metrics
+    within 1e-5. Returns (launches, the worst metric difference)."""
     from juicy_tpu_torch.analyzer import analyzer_init
     from juicy_tpu_torch.kernels import analyzer_kernel as ak
     from juicy_tpu_torch.kernels import stage_kernels as sk
 
-    b, n = BATCH, BLOCK
-    x = make_clicks(b, CHANNELS, 2 * n, device, seed=43, period=2 * n)
+    n = BLOCK
+    x = make_clicks(b, c, 2 * n, device, seed=43, period=2 * n)
     lane_k = sk._lane_consts(SR)
     step = entry_steps()["analyzer"]
-    st0 = analyzer_init((b,), device)
     reset_launches()
-    st, runs = st0, []
+    st, runs = analyzer_init((b,), device), []
     for i in range(2):
         runs.append((st, ak.analyze_fused(st, x[..., i * n:(i + 1) * n], SR)))
         st = runs[-1][1][0]
     torch.cuda.synchronize()
     launches = step.launches
     if launches != 2 or other_launches(step):
-        raise AssertionError(f"analyze_fused: {launches} launches (and "
-                             f"{other_launches(step)} of another kernel) "
-                             f"for 2 blocks")
+        raise AssertionError(f"analyze_fused B={b} C={c}: {launches} "
+                             f"launches (and {other_launches(step)} of "
+                             f"another kernel) for 2 blocks")
     worst = 0.0
     for i, (st_in, (st_k, m_k)) in enumerate(runs):
         blk = x[..., i * n:(i + 1) * n]
@@ -1697,34 +1707,78 @@ def phase_analyze_fused(device):
         raw_k = ak._analyzer_lanes_cuda(blk, lane0, lane_k)
         raw_p = ak._analyzer_lanes_plain(blk, lane0, lane_k)
         if not all(torch.equal(a, p) for a, p in zip(raw_k, raw_p)):
-            raise AssertionError(f"analyze_fused block {i}: fin/acc differ")
+            raise AssertionError(f"analyze_fused B={b} C={c} block {i}: "
+                                 f"fin/acc differ")
         st_p, m_p = ak.analyze_fused_plain(st_in, blk, SR)
         if not torch.equal(st_k["onset_cooldown"], st_p["onset_cooldown"]):
-            raise AssertionError(f"analyze_fused block {i}: cooldowns differ")
-        worst = max(worst, check_all(f"analyze_fused block {i}", m_k, m_p,
-                                     1e-5))
-        print(f"analyze_fused block {i}: fin/acc bit-equal, onsets "
-              f"{int(raw_k[1][1].sum())}, cooldowns running in "
-              f"{float((st_k['onset_cooldown'] > 0).float().mean()):.1%}, "
-              f"metrics within {worst:.3g}")
-    blk = x[..., :n]
+            raise AssertionError(f"analyze_fused B={b} C={c} block {i}: "
+                                 f"cooldowns differ")
+        worst = max(worst, check_all(f"analyze_fused B={b} C={c} block {i}",
+                                     m_k, m_p, 1e-5))
+    print(f"analyze_fused B={b} C={c}: 2 blocks, 2 launches and no other; "
+          f"fin/acc bit-equal to the plain version, onsets "
+          f"{int(raw_k[1][1].sum())} in block 1, cooldowns equal, metrics "
+          f"within {worst:.3g}")
+    return launches, worst
+
+
+def phase_analyze_fused(device):
+    """3f: analyze_fused (csrc/analyzer.cu) against its plain version at
+    ANALYZER_CASES, each counted; the kernel's geometry; its time per
+    block alone and through the wrapper (the block in its own layout), at
+    B = 4096 and 8192, mono and stereo; the whole step's and the plain
+    version's at B = 4096 stereo."""
+    from juicy_tpu_torch.analyzer import analyzer_init
+    from juicy_tpu_torch.kernels import analyzer_kernel as ak
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+
+    worst, launches = 0.0, None
+    for b, c in ANALYZER_CASES:
+        got, w = analyzer_vs_plain(device, b, c)
+        worst = max(worst, w)
+        if launches is None:
+            launches = got
+    print("analyze_fused: the stage and chain kernels, which share lane.cuh "
+          "and pipe.cuh with it, were held bit-equal to their plain versions "
+          "in 3-3e above")
+    geo = {c: show_geometry(f"analyzer kernel (C={c})",
+                            ak.analyzer_geometry(BLOCK, c, device),
+                            f"analyzer_kernelILi{c}E") for c in (2, 1)}
+    n, lane_k = BLOCK, sk._lane_consts(SR)
+    times = {}
+    for b in STAGE_TIMED_BATCHES:
+        for c in (2, 1):
+            blk = make_clicks(b, c, n, device, seed=45)
+            lane0 = sk.pack_lane(analyzer_init((b,), device), b)
+            fin = torch.empty((5, b), device=device)
+            acc = torch.empty((10, b), device=device)
+            ms = kernel_ms(lambda: ak.analyzer_launch(blk, lane0, fin, acc,
+                                                      lane_k), 50)
+            layout_ms = kernel_ms(
+                lambda: ak._analyzer_lanes_cuda(blk, lane0, lane_k), 50)
+            bound_ms, bound_by = analyzer_bound(b, c, n)
+            times[(b, c)] = (ms, layout_ms, bound_ms, bound_by)
+            print(f"analyze_fused kernel per block at B={b}, C={c}, N={n}: "
+                  f"{ms:.4f} ms alone, {layout_ms:.4f} ms through the "
+                  f"wrapper (the block as given); bound {bound_ms:.4f} ms "
+                  f"({bound_by}), {bound_ms / ms:.1%} of it")
+    b = BATCH
+    blk = make_clicks(b, CHANNELS, n, device, seed=45)
+    st0 = analyzer_init((b,), device)
     lane0 = sk.pack_lane(st0, b)
-    xt = blk.permute(2, 1, 0).contiguous()
-    fin = torch.empty((5, b), device=device)
-    acc = torch.empty((10, b), device=device)
-    ms = cuda_ms(lambda: ak.analyzer_launch(xt, lane0, fin, acc, lane_k), 50)
-    layout_ms = cuda_ms(lambda: ak._analyzer_lanes_cuda(blk, lane0, lane_k),
-                        50)
     step_ms = cuda_ms(lambda: ak.analyze_fused(st0, blk, SR), 20)
     plain_ms = cuda_ms(lambda: ak._analyzer_lanes_plain(blk, lane0, lane_k), 1)
-    bound_ms, bound_by = analyzer_bound(b, CHANNELS, n)
+    ms, layout_ms, bound_ms, bound_by = times[(b, CHANNELS)]
     print(f"analyze_fused per block at B={b}, N={n}: kernel {ms:.4f} ms "
-          f"alone, {layout_ms:.4f} ms with layout, whole step {step_ms:.4f} "
-          f"ms, plain {plain_ms:.2f} ms; bound {bound_ms:.4f} ms "
-          f"({bound_by})")
+          f"alone, {layout_ms:.4f} ms with the layout, whole step "
+          f"{step_ms:.4f} ms (finalize_lane's launches included), plain "
+          f"{plain_ms:.2f} ms; bound {bound_ms:.4f} ms ({bound_by})")
     return {"launches": launches, "max_abs_err": worst, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "layout_ms": layout_ms, "step_ms": step_ms}
+            "library_ms": None, "layout_ms": layout_ms, "step_ms": step_ms,
+            "ms_by_batch": {f"{bb}x{cc}": t[0] for (bb, cc), t in
+                            times.items()},
+            "geometry": geo[CHANNELS]}
 
 
 def phase_saturator_step_fused(device, plugin, params):

@@ -69,6 +69,10 @@ __device__ __forceinline__ void lane_store(const Lane& s, float* fin,
 // One analyzer sample (JuicinessAnalyzer.cpp:57-92 plus the stateless
 // accumulators). (1 - c) * x + c * env must stay unfused: it feeds the
 // onset comparison, where one contracted ulp can flip an onset.
+// The envelopes here select the coefficient first; lane_step_envelopes
+// below computes both updates and then selects (EnvConsts), the same bits.
+// Keep the two in step by hand until lane_step calls the split bodies
+// (PERF.md §7).
 __device__ __forceinline__ void lane_step(Lane& s, float l, float r,
                                           const LaneConsts& k) {
   const float mono = 0.5f * (l + r);
@@ -103,15 +107,36 @@ __device__ __forceinline__ void lane_step(Lane& s, float l, float r,
 // (the band one-poles and their energies, then the six stateless sums:
 // rms, peak, side, corr, L^2, R^2). Each variable gets the same operations
 // in the same order as in lane_step.
+//
+// The envelopes part keeps the coefficients in registers (EnvConsts) and
+// takes each envelope's update for both coefficients before the compare
+// selects one: the recurrence then waits on a multiply, an add and a select
+// of two registers. Selecting the coefficient first, from the kernel's
+// parameters, put a constant-bank load inside the recurrence (PERF.md §7).
+// The selected value is lane_step's operations in its order,
+// (1 - c) * x + c * env with 1 - c taken once per coefficient, so it is
+// bit-equal.
+struct EnvConsts {
+  float atk_s, rel_s, atk_l, rel_l;
+  float oma_s, omr_s, oma_l, omr_l;  // 1 - each
+};
+
+__device__ __forceinline__ EnvConsts env_consts(const LaneConsts& k) {
+  return {k.atk_s,        k.rel_s,        k.atk_l,        k.rel_l,
+          1.0f - k.atk_s, 1.0f - k.rel_s, 1.0f - k.atk_l, 1.0f - k.rel_l};
+}
+
 __device__ __forceinline__ float lane_step_envelopes(Lane& s, float l,
                                                      float r,
-                                                     const LaneConsts& k) {
+                                                     const EnvConsts& e) {
   const float mono = 0.5f * (l + r);
   const float x = fabsf(mono);
-  const float cs = x > s.s_env ? k.atk_s : k.rel_s;
-  s.s_env = (1.0f - cs) * x + cs * s.s_env;
-  const float cl = x > s.l_env ? k.atk_l : k.rel_l;
-  s.l_env = (1.0f - cl) * x + cl * s.l_env;
+  const float s_atk = e.oma_s * x + e.atk_s * s.s_env;
+  const float s_rel = e.omr_s * x + e.rel_s * s.s_env;
+  s.s_env = x > s.s_env ? s_atk : s_rel;
+  const float l_atk = e.oma_l * x + e.atk_l * s.l_env;
+  const float l_rel = e.omr_l * x + e.rel_l * s.l_env;
+  s.l_env = x > s.l_env ? l_atk : l_rel;
   return max0(s.s_env - s.l_env);
 }
 

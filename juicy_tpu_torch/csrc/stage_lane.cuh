@@ -8,7 +8,8 @@
 // shared memory, behind once-barriers (pipe.cuh): "ready" per chunk of the
 // two passes, and "done" when L has read it, after which V may reuse the
 // slot. V and E read their streams a chunk ahead with pipe.cuh's
-// ChunkReader, and each sample's input one sample ahead.
+// ChunkReader, and each sample's input one sample ahead. V's coefficients
+// are worked out once a pass into registers (lane.cuh EnvConsts).
 #pragma once
 
 #include "lane.cuh"
@@ -39,6 +40,7 @@ __device__ __forceinline__ void part_pass(Lane& s, Reader& in,
                                           const LaneConsts& k) {
   uint64_t* ready = link.bars;
   uint64_t* done = link.bars + 2 * in.nc;
+  const EnvConsts e = env_consts(k);
   for (int j = 0; j < in.nc; ++j) {
     const int g = p * in.nc + j, n = in.len(j);
     float* t = link.ring + (g % kSlots) * kChunk * 32;
@@ -61,7 +63,7 @@ __device__ __forceinline__ void part_pass(Lane& s, Reader& in,
         const int nx = i + 1 < n ? i + 1 : i;
         const float ln = v[(2 * nx) * 32], rn = v[(2 * nx + 1) * 32];
         if constexpr (PART == kEnvelopes)
-          t[i * 32] = lane_step_envelopes(s, l, r, k);
+          t[i * 32] = lane_step_envelopes(s, l, r, e);
         else
           lane_step_energy(s, l, r, k);
         l = ln;

@@ -151,6 +151,8 @@ def load_library() -> ctypes.CDLL:
         getattr(lib, name).restype = i32
     lib.juicy_analyzer_block.argtypes = [ptr] * 4 + [i32] * 3 + [f32] * 7 + [ptr]
     lib.juicy_analyzer_block.restype = i32
+    lib.juicy_analyzer_geometry.argtypes = [i32, i32, ptr]
+    lib.juicy_analyzer_geometry.restype = i32
     lib.juicy_cuda_error_string.argtypes = [i32]
     lib.juicy_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -4,10 +4,12 @@ juicy_tpu/kernels/analyzer_kernel.py (``analyze_fused``).
 ``analyze_fused(state, block, sr)`` keeps the JAX contract: ``block``
 [B, C, N] float32, analyzer-state leaves [B], returns ``(state', metrics)``
 equal to the batched ``analyze``. For a CUDA tensor it launches
-``juicy_analyzer_block`` (csrc/analyzer.cu): one thread per clip runs the
-stage kernels' lane (``lane.cuh::lane_step``) over the time-major block and
-writes ``fin`` [5, B] and ``acc`` [10, B]. For a CPU tensor it runs the plain
-version, the same lane as a serial loop over [B] tensors
+``juicy_analyzer_block`` (csrc/analyzer.cu) once on the block as given
+([B, C, N], made contiguous only if it is not): 32 clips per CTA, the
+lane split across three warps (the envelopes, the onsets, the energies)
+and a copy warp that brings the block's rows into shared memory chunk by
+chunk. It writes ``fin`` [5, B] and ``acc`` [10, B]. For a CPU tensor it
+runs the plain version, the same lane as a serial loop over [B] tensors
 (``stage_kernels._lane_step``). Any other device raises; neither route
 gives way to the other. ``finalize_lane`` then gives the metrics.
 
@@ -35,24 +37,23 @@ def _analyzer_lanes_plain(x, lane0, lane_k):
     return sk._store_lane(lane)
 
 
-def analyzer_launch(xt, lane0, fin, acc, lane_k):
-    """One launch of ``juicy_analyzer_block`` on prepared buffers (xt
-    [N, C, B] time-major, lane0 / fin [5, B], acc [10, B], contiguous
-    float32 on one card), on that card's current stream; raises on a
-    refused launch."""
+def analyzer_launch(x, lane0, fin, acc, lane_k):
+    """One launch of ``juicy_analyzer_block`` on prepared buffers (x
+    [B, C, N], lane0 / fin [5, B], acc [10, B], contiguous float32 on one
+    card), on that card's current stream; raises on a refused launch."""
     from juicy_tpu_torch.kernels import _build
 
-    n, c, b = xt.shape
-    for t in (xt, lane0, fin, acc):
+    b, c, n = x.shape
+    for t in (x, lane0, fin, acc):
         if not (t.is_contiguous() and t.dtype == F32
-                and t.device == xt.device):
+                and t.device == x.device):
             raise ValueError("analyzer kernel buffers must be contiguous "
                              "float32 on one device")
     lib = _build.load_library()
-    with torch.cuda.device(xt.device):
-        stream = torch.cuda.current_stream(xt.device).cuda_stream
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.juicy_analyzer_block(
-            xt.data_ptr(), lane0.data_ptr(), fin.data_ptr(), acc.data_ptr(),
+            x.data_ptr(), lane0.data_ptr(), fin.data_ptr(), acc.data_ptr(),
             b, c, n, *lane_k, stream)
     if err != 0:
         raise RuntimeError(f"juicy_analyzer_block launch failed: CUDA error "
@@ -61,14 +62,20 @@ def analyzer_launch(xt, lane0, fin, acc, lane_k):
 
 
 def _analyzer_lanes_cuda(x, lane0, lane_k):
-    """The kernel route: layout, launch. Same contract as
-    _analyzer_lanes_plain."""
+    """The kernel route: one launch on the block in its own layout. Same
+    contract as _analyzer_lanes_plain."""
     b = x.shape[0]
     fin = torch.empty((5, b), dtype=F32, device=x.device)
     acc = torch.empty((10, b), dtype=F32, device=x.device)
-    analyzer_launch(x.permute(2, 1, 0).contiguous(), lane0.contiguous(), fin,
-                    acc, lane_k)
+    analyzer_launch(x.contiguous(), lane0.contiguous(), fin, acc, lane_k)
     return fin, acc
+
+
+def analyzer_geometry(n: int, channels: int = 2, device=None):
+    """The analyzer kernel's geometry (stage_kernels.GEOMETRY_KEYS) for
+    block size `n`, read off the card."""
+    return sk.read_geometry("juicy_analyzer_geometry", channels, n,
+                            device=device)
 
 
 def _analyze(lanes_fn, state, block, sr: float):

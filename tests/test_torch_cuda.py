@@ -25,8 +25,10 @@ audio and state) at batches that are not a multiple of its 32 clips per
 CTA (300, 45 and 4099), two runs of one input that must be bit-identical,
 the Haas delay at 0 and at its largest over seven blocks, its stream
 against its step, and ``run_corpus_chain``'s routes on the card.
-``analyze_fused`` and ``saturator_step_fused`` run against their plain
-versions (and the latter against the saturator stage step), the chain
+``analyze_fused`` runs against its plain version at batches of 1, 31,
+300 and 4097, mono and stereo, blocks of 1, 7, 100 and 512 samples, with
+a NaN sample and on non-contiguous blocks; ``saturator_step_fused``
+against its plain version and the saturator stage step; the chain
 kernel with per-clip constant rows (at the same batches) against its plain
 version run once per distinct row, and the serving pool on the card
 against the plain step with the same rows. The inputs
@@ -643,32 +645,59 @@ def test_run_corpus_chain_always_on_card(cuda_device):
 # and the serving pool on the card
 # ---------------------------------------------------------------------------
 
+#: analyze_fused's cases (batch, channels, block length, kind): one clip,
+#: a CTA short of a lane, ragged, one past a multiple of 32; mono and
+#: stereo; one sample, fewer than a group of four, not a whole number of
+#: 32-sample chunks, the main path's 512. "nan": a NaN sample in the first
+#: block; "strided": each block a non-contiguous view.
+_ANALYZER_CASES = [
+    *((b, c, n, "contiguous") for b in (1, 31, 300, 4097) for c in (1, 2)
+      for n in (1, 7, 100, 512)),
+    (300, 2, 512, "nan"), (300, 2, 512, "strided"), (31, 1, 100, "strided")]
+
+
+def _bit_equal(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels", [1, 2])
-def test_analyze_fused_kernel_matches_plain(channels, cuda_device):
-    """Two blocks at B = 300 (ragged): the lanes (fin, acc) bit-equal, so
-    the state and the metrics are too; one launch per block."""
+@pytest.mark.parametrize("batch,channels,n,kind", _ANALYZER_CASES)
+def test_analyze_fused_kernel_matches_plain(batch, channels, n, kind,
+                                            cuda_device):
+    """Two blocks, the second from the first's state: the lanes (fin, acc)
+    bit-equal to the plain version's (NaN where it has NaN), so the state
+    and the metrics are too, the cooldowns exactly; one launch per block."""
     from juicy_tpu_torch.analyzer import analyzer_init
     from juicy_tpu_torch.kernels import analyzer_kernel as ak
 
-    clips = _clips(70 + channels, channels, 2, cuda_device)
+    clips = _clips(70 + channels, channels, 2, cuda_device, batch=batch, n=n)
+    if kind == "nan":
+        clips[batch // 2, 0, n // 3] = float("nan")
     lane_k = sk._lane_consts(SR)
-    st_k = st_p = analyzer_init((B,), cuda_device)
-    before = ak.analyze_fused.launches
+    st_k = st_p = analyzer_init((batch,), cuda_device)
     for k in range(2):
-        blk = clips[..., k * N:(k + 1) * N]
-        lane0 = sk.pack_lane(st_k, B)
+        blk = clips[..., k * n:(k + 1) * n]
+        blk = (blk.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+               if kind == "strided" else blk.contiguous())
+        assert blk.is_contiguous() == (kind != "strided")
+        lane0 = sk.pack_lane(st_k, batch)
         raw_k = ak._analyzer_lanes_cuda(blk, lane0, lane_k)
         raw_p = ak._analyzer_lanes_plain(blk, lane0, lane_k)
-        assert all(torch.equal(a, b) for a, b in zip(raw_k, raw_p))
+        for got, want in zip(raw_k, raw_p):
+            _bit_equal(got, want)
+        before = ak.analyze_fused.launches
         st_k, m_k = ak.analyze_fused(st_k, blk, SR)
+        assert ak.analyze_fused.launches == before + 1
         st_p, m_p = ak.analyze_fused_plain(st_p, blk, SR)
         torch.cuda.synchronize()
+        assert torch.equal(st_k["onset_cooldown"], st_p["onset_cooldown"])
         for tree_k, tree_p in ((st_k, st_p), (m_k, m_p)):
             for key, v in tree_p.items():
-                assert torch.equal(tree_k[key], v), key
-    assert ak.analyze_fused.launches == before + 4
-    assert int(st_k["onset_cooldown"].max()) > 0
+                _bit_equal(tree_k[key], v)
+    if kind == "nan":
+        assert bool(torch.isnan(st_k["short_env"][batch // 2]))
+    if n >= 100:
+        assert int(st_k["onset_cooldown"].max()) > 0  # onsets ran
 
 
 @pytest.mark.cuda

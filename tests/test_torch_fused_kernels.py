@@ -3,7 +3,9 @@
 JAX's numbers come from its interpret-mode Pallas kernels, run in one
 process without FMA contraction (tests/torch_jax_ref.py), on the inputs of
 tests/test_kernels.py: B = 1024 clips of make_clip (eight clips repeated),
-blocks of 256, two blocks with the state carried.
+blocks of 256, two blocks with the state carried. ``analyze_fused`` also
+runs stereo blocks of 512 and mono blocks of 100 (JAX's unroll-1 path, and
+a block that is not a whole number of the CUDA kernel's chunks).
 
 - ``analyze_fused`` (its plain version: a CPU block) against JAX's
   ``analyze_fused``: states within 1e-6 (rel), ``onset_cooldown`` exact,
@@ -42,14 +44,18 @@ from tests.torch_jax_ref import no_fma_reference
 SR = 48000.0
 N = 256
 B = 1024
+#: (channels, block length) of the analyze_fused cases
+ANALYZER_CASES = ((2, N), (2, 512), (1, 100))
 STATE_KEYS = ("short_env", "long_env", "low_state", "high_state",
               "repetition_ema", "fatigue_ema")
 
 
-def _clips(seed):
-    """tests/test_kernels.py's batch: eight make_clip clips, repeated."""
+def _clips(seed, channels=2, n=N):
+    """tests/test_kernels.py's batch: eight make_clip clips of two blocks,
+    repeated."""
     rng = np.random.default_rng(seed)
-    return np.stack([make_clip(rng, 2, 2 * N) for _ in range(8)] * (B // 8))
+    return np.stack([make_clip(rng, channels, 2 * n)
+                     for _ in range(8)] * (B // 8))
 
 
 def _jax_fused_refs():
@@ -61,14 +67,15 @@ def _jax_fused_refs():
     from juicy_tpu.runtime.plugin import Plugin as JPlugin
 
     out = {}
-    clips = _clips(1)
-    st = jax.vmap(lambda _: j_init())(jnp.arange(B))
-    for k in range(2):
-        st, m = j_analyze(st, jnp.asarray(clips[..., k * N:(k + 1) * N]), SR,
-                          interpret=True)
-        for group, tree in (("st", st), ("m", m)):
-            for key, v in jax.device_get(tree).items():
-                out[f"an/{k}/{group}/{key}"] = np.asarray(v)
+    for c, n in ANALYZER_CASES:
+        clips = _clips(1, c, n)
+        st = jax.vmap(lambda _: j_init())(jnp.arange(B))
+        for k in range(2):
+            st, m = j_analyze(st, jnp.asarray(clips[..., k * n:(k + 1) * n]),
+                              SR, interpret=True)
+            for group, tree in (("st", st), ("m", m)):
+                for key, v in jax.device_get(tree).items():
+                    out[f"an/{c}x{n}/{k}/{group}/{key}"] = np.asarray(v)
     plug = JPlugin("saturator", SR, 2, N)
     params = plug.preset("Amber Heat")
     clips = _clips(2)
@@ -101,18 +108,20 @@ def _assert_state(st, ref, prefix, rtol=1e-6):
                                    rtol=rtol, atol=1e-7, err_msg=key)
 
 
-def test_torch_analyze_fused_vs_jax(jax_ref):
+@pytest.mark.parametrize("channels,n", ANALYZER_CASES)
+def test_torch_analyze_fused_vs_jax(channels, n, jax_ref):
     """Two blocks with the state carried; the onsets and cooldowns ran."""
-    clips = torch.from_numpy(_clips(1))
+    clips = torch.from_numpy(_clips(1, channels, n))
     st = analyzer_init((B,), "cpu")
     for k in range(2):
-        st, m = analyze_fused(st, clips[..., k * N:(k + 1) * N], SR)
-        _assert_state(st, jax_ref, f"an/{k}/st")
+        st, m = analyze_fused(st, clips[..., k * n:(k + 1) * n], SR)
+        tag = f"an/{channels}x{n}/{k}"
+        _assert_state(st, jax_ref, f"{tag}/st")
         m = to_numpy(m)
         assert set(m) == {key.split("/")[-1] for key in jax_ref
-                          if key.startswith(f"an/{k}/m/")}
+                          if key.startswith(f"{tag}/m/")}
         for key, v in m.items():
-            np.testing.assert_allclose(v, jax_ref[f"an/{k}/m/{key}"],
+            np.testing.assert_allclose(v, jax_ref[f"{tag}/m/{key}"],
                                        rtol=2e-5, atol=2e-5, err_msg=key)
     assert int(st["onset_cooldown"].max()) > 0
 
