@@ -121,7 +121,25 @@ on the card from a seed. Phases, each of which raises on failure:
     with per-slot rows), sustained async, i16 and metering-rail ticks, and,
     with every slot a setting of its own, of one ``set_params`` and the
     tick after it (one launch each), against the 10.667 ms block deadline
-    (reported, not gated).
+    (reported, not gated);
+6.  the host entry points: the CLI's corpus command (``cli.main``, what
+    ``python -m juicy_tpu_torch corpus`` runs) on 64 one-second WAVs in
+    two batches with a checkpoint, then again from the cursor rewound to
+    half-way (one chain-kernel launch per block of each batch, every output
+    bit-equal to ``run_corpus_chain``); its serve command on 4 WAVs (one
+    launch per tick, equal to a direct ``StreamServer``); its process
+    command with punch (one punch launch per block, bit-equal to the
+    ``StreamStep`` loop, its first 3 blocks to the plain stage step on the
+    card; texture and motion through ``StreamStep`` at B = 1 against their
+    plain steps, audio and every state leaf bit-equal); ``PipelinedStream`` on the canonical chain, depth
+    2, 94 ticks (one launch per tick, audio bit-equal to
+    ``chain_kernel_stream`` and its first ticks to the plain step on the
+    card, tick walls against the 10.667 ms block); ``HostBridge`` on the
+    saturator over 200 blocks (every block back in order, bit-equal to
+    ``run_corpus`` and its first 3 blocks to the plain stage step on the
+    card, at least 1x realtime); one block alone of width, cohere
+    and infer (no kernel: ``Plugin.step``), timed. ``--phase 6`` runs this
+    phase alone, after the build.
 
 Before each path every launch count is set to 0, and read after it.
 The line before the last is a JSON summary of the kernels, with each one's
@@ -2071,6 +2089,372 @@ def phase_serve(device):
     return timing
 
 
+HOST_CLIPS = 64                  # phase 6a: one-second WAVs
+HOST_T = int(SR)                 # 6a, 6c: one second
+HOST_BATCH = 32                  # 6a: the CLI's --batch (two macro batches)
+HOST_SERVE_STREAMS = 4           # 6b
+HOST_SERVE_BLOCKS = 24
+HOST_PIPE_TICKS = NUM_BLOCKS     # 6d
+HOST_PIPE_DEPTH = 2
+HOST_PIPE_PLAIN_TICKS = 3        # 6d: the first ticks against the plain step
+HOST_BRIDGE_BLOCKS = 200         # 6e
+HOST_STAGE_PLAIN_BLOCKS = 3      # 6c, 6e: the first blocks at B = 1 against
+                                 # the plain stage step on the card
+HOST_ALONE = ("width", "cohere", "infer")    # 6f: no kernel in either package
+
+
+def host_wavs(folder, clips):
+    """Write each clip [C, T] (a tensor on the card) as a float32 WAV."""
+    import os
+
+    from juicy_tpu_torch.runtime.wav import write_wav
+
+    paths = []
+    for i, clip in enumerate(clips):
+        path = os.path.join(folder, f"clip{i:03d}.wav")
+        write_wav(path, clip.cpu().numpy(), int(SR))
+        paths.append(path)
+    return paths
+
+
+def chain_spec():
+    return ",".join(f"{n}:{p}" if p else n for n, p in CHAIN)
+
+
+def host_corpus(device, folder):
+    """6a: the CLI's corpus command (``cli.main``, what ``python -m
+    juicy_tpu_torch corpus`` runs) on HOST_CLIPS one-second WAVs with a
+    checkpoint, then again from a cursor rewritten to half-way."""
+    import json as _json
+    import os
+
+    from juicy_tpu_torch.cli import main as cli_main
+    from juicy_tpu_torch.parallel.corpus import run_corpus_chain
+    from juicy_tpu_torch.runtime.wav import read_wav
+
+    t = HOST_T
+    clips = make_clicks(HOST_CLIPS, CHANNELS, t, device, seed=61)
+    paths = host_wavs(folder, clips)
+    out_dir, ck = os.path.join(folder, "out"), os.path.join(folder, "ck.json")
+    args = ["corpus", *paths, "--stages", chain_spec(), "--out-dir", out_dir,
+            "--checkpoint", ck, "--batch", str(HOST_BATCH)]
+    nb = -(-t // BLOCK)
+    reset_launches()
+    t0 = time.perf_counter()
+    cli_main(args)
+    wall = time.perf_counter() - t0
+    check_launches("6a corpus", nb * HOST_CLIPS // HOST_BATCH)
+    with open(ck) as f:
+        cursor = _json.load(f)
+    if cursor["done"] != HOST_CLIPS:
+        raise AssertionError(f"6a: cursor {cursor}")
+    first = [read_wav(os.path.join(out_dir, os.path.basename(p)))[0]
+             for p in paths]
+    half = HOST_CLIPS // 2
+    with open(ck, "w") as f:
+        _json.dump(dict(cursor, done=half), f)
+    for p in paths[half:]:
+        os.remove(os.path.join(out_dir, os.path.basename(p)))
+    reset_launches()
+    cli_main(args)
+    check_launches("6a resumed corpus", nb * (HOST_CLIPS - half) // HOST_BATCH)
+    padded = torch.nn.functional.pad(clips, (0, nb * BLOCK - t))
+    want, _ms, _agg = run_corpus_chain(bench_chain(), padded)
+    want = want[..., :t].cpu().numpy()
+    for i, p in enumerate(paths):
+        got = read_wav(os.path.join(out_dir, os.path.basename(p)))[0]
+        if not (np.array_equal(got, want[i]) and np.array_equal(first[i],
+                                                                want[i])):
+            raise AssertionError(f"6a: clip {i} differs from "
+                                 f"run_corpus_chain")
+    print(f"6a corpus CLI: {HOST_CLIPS} one-second WAVs in batches of "
+          f"{HOST_BATCH}, {nb * HOST_CLIPS // HOST_BATCH} chain-kernel "
+          f"launches, then {nb * (HOST_CLIPS - half) // HOST_BATCH} after the "
+          f"cursor was rewound to {half}; every output bit-equal to "
+          f"run_corpus_chain; first run {wall:.2f} s")
+    return {"corpus_cli_s": wall,
+            "corpus_launches": nb * HOST_CLIPS // HOST_BATCH}
+
+
+def host_serve(device, folder):
+    """6b: the CLI's serve command on HOST_SERVE_STREAMS WAVs through the
+    canonical chain, against a direct StreamServer."""
+    import os
+
+    from juicy_tpu_torch.cli import main as cli_main
+    from juicy_tpu_torch.runtime.serve import StreamServer
+    from juicy_tpu_torch.runtime.wav import read_wav
+
+    t = HOST_SERVE_BLOCKS * BLOCK - 100
+    clips = make_clicks(HOST_SERVE_STREAMS, CHANNELS, t, device, seed=67)
+    paths = host_wavs(folder, clips)
+    prefix = os.path.join(folder, "served_")
+    reset_launches()
+    cli_main(["serve", *paths, "--stages", chain_spec(), "--out-prefix",
+              prefix])
+    check_launches("6b serve", HOST_SERVE_BLOCKS)
+    srv = StreamServer(bench_chain(), max_streams=HOST_SERVE_STREAMS)
+    sids = [srv.open_stream() for _ in paths]
+    padded = torch.nn.functional.pad(clips, (0, HOST_SERVE_BLOCKS * BLOCK - t)
+                                     ).cpu().numpy()
+    outs = {sid: [] for sid in sids}
+    for k in range(HOST_SERVE_BLOCKS):
+        for sid, clip in zip(sids, padded):
+            srv.submit(sid, clip[..., k * BLOCK:(k + 1) * BLOCK])
+        for sid, res in srv.tick().items():
+            outs[sid].append(res["audio"])
+    for i, sid in enumerate(sids):
+        want = np.concatenate(outs[sid], -1)[..., :t]
+        if not np.array_equal(read_wav(f"{prefix}{i}.wav")[0], want):
+            raise AssertionError(f"6b: stream {i} differs from a direct "
+                                 f"StreamServer")
+    print(f"6b serve CLI: {HOST_SERVE_STREAMS} streams, "
+          f"{HOST_SERVE_BLOCKS} ticks, one chain-kernel launch per tick; "
+          f"outputs equal to a direct StreamServer")
+
+
+def stage_b1_vs_plain(tag, plug, params, audio, got=None):
+    """The first HOST_STAGE_PLAIN_BLOCKS blocks of `audio` [1, C, T] on the
+    card through the plugin's stage step at B = 1 twice: a StreamStep (its
+    stage kernel, one CTA with one busy lane) and the same StreamStep with
+    the plain stage step in its place. Audio and every state leaf
+    bit-equal, the metrics within check_metrics' bars; `got` [C, T'], a
+    main path's output over the same audio, bit-equal to the plain audio.
+    Launches made here are comparisons: the caller has read its counts."""
+    from juicy_tpu_torch.kernels import stage_kernels as sk
+    from juicy_tpu_torch.runtime.host_bridge import StreamStep
+
+    plain = {"punch": sk.punch_stage_step_plain,
+             "saturator": sk.saturator_stage_step_plain,
+             "texture": sk.texture_stage_step_plain,
+             "motion": sk.motion_stage_step_plain}[plug.defn.name]
+    kern, ref = StreamStep(plug, 1, audio.device), StreamStep(plug, 1,
+                                                              audio.device)
+    if kern.kstep is None:
+        raise AssertionError(f"{tag}: {plug.defn.name} has no stage kernel")
+    ref.kstep = plain
+    nb = HOST_STAGE_PLAIN_BLOCKS
+    for k in range(nb):
+        blk = audio[..., k * BLOCK:(k + 1) * BLOCK]
+        out_k, m_k = kern.step(params, blk)
+        out_p, m_p = ref.step(params, blk)
+        if not torch.equal(out_k, out_p):
+            raise AssertionError(f"{tag}: block {k} at B = 1: kernel vs "
+                                 f"plain {residual_dbfs(out_k, out_p):.1f} "
+                                 f"dBFS")
+        check_metrics(f"{tag} block {k}", m_k, m_p)
+        seg = None if got is None else got[:, k * BLOCK:(k + 1) * BLOCK]
+        if seg is not None and not np.array_equal(
+                seg, out_p[0, :, :seg.shape[-1]].cpu().numpy()):
+            raise AssertionError(f"{tag}: block {k} of the main path "
+                                 f"differs from the plain stage step")
+    for part in ("analyzer", "dsp"):
+        for key, v in ref.state[part].items():
+            if not torch.equal(kern.state[part][key], v):
+                raise AssertionError(f"{tag}: state {part}.{key} differs "
+                                     f"at B = 1")
+    print(f"{tag}: the first {nb} blocks at B = 1 bit-equal to the plain "
+          f"stage step on the card (audio, every state leaf)"
+          + ("" if got is None else ", the main path's output included"))
+
+
+def host_process(device, folder):
+    """6c: the CLI's process command with punch: one punch-kernel launch
+    per block, the WAV bit-equal to the same step loop."""
+    import os
+
+    from juicy_tpu_torch.cli import main as cli_main
+    from juicy_tpu_torch.runtime.host_bridge import StreamStep
+    from juicy_tpu_torch.runtime.plugin import Plugin
+    from juicy_tpu_torch.runtime.wav import read_wav
+
+    t = HOST_T
+    src = host_wavs(folder, make_clicks(1, CHANNELS, t, device, seed=71))[0]
+    dst = os.path.join(folder, "punched.wav")
+    nb = -(-t // BLOCK)
+    reset_launches()
+    t0 = time.perf_counter()
+    cli_main(["process", src, dst, "--plugin", "punch", "--preset",
+              PUNCH_PRESET])
+    wall = time.perf_counter() - t0
+    step = stage_steps()["punch"]
+    if step.launches != nb or other_launches(step):
+        raise AssertionError(f"6c: {step.launches} punch launches (and "
+                             f"{other_launches(step)} other) for {nb} blocks")
+    plug = Plugin("punch", SR, CHANNELS, BLOCK)
+    params = plug.preset(PUNCH_PRESET)
+    stepper = StreamStep(plug, 1, device)
+    audio = torch.from_numpy(read_wav(src)[0]).to(device)
+    audio = torch.nn.functional.pad(audio, (0, nb * BLOCK - t))[None]
+    want = torch.cat([stepper.step(params, audio[..., k * BLOCK:
+                                                 (k + 1) * BLOCK])[0]
+                      for k in range(nb)], -1)[0, :, :t].cpu().numpy()
+    if not np.array_equal(read_wav(dst)[0], want):
+        raise AssertionError("6c: process output differs from the step loop")
+    print(f"6c process CLI (punch, {nb} blocks): one punch-kernel launch per "
+          f"block, output bit-equal to the stage-step loop; {wall:.2f} s")
+    stage_b1_vs_plain("6c punch", plug, params, audio, read_wav(dst)[0])
+    clip = make_clicks(1, CHANNELS, HOST_STAGE_PLAIN_BLOCKS * BLOCK, device,
+                       seed=72)
+    for name in ("texture", "motion"):
+        plug = Plugin(name, SR, CHANNELS, BLOCK)
+        stage_b1_vs_plain(f"6c {name}", plug, plug.default_params(), clip)
+    return {"process_cli_s": wall}
+
+
+def host_pipelined(device):
+    """6d: PipelinedStream on the canonical chain, depth 2, one launch per
+    tick; its audio against chain_kernel_stream over the same clip, and its
+    first ticks against the plain step on the card."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.runtime.host_bridge import PipelinedStream
+
+    chain = bench_chain()
+    clip = make_clicks(1, CHANNELS, HOST_PIPE_TICKS * BLOCK, device,
+                       seed=73)
+    host = clip[0].cpu().numpy()
+    ps = PipelinedStream(chain, depth=HOST_PIPE_DEPTH)
+    if not ps.kernel_path:
+        raise AssertionError("6d: the canonical chain missed the kernel path")
+    ps.tick(host[:, :BLOCK])                    # warm-up: the build, pinned
+    ps.flush()                                  # buffers and caches
+    ps = PipelinedStream(chain, depth=HOST_PIPE_DEPTH)
+    reset_launches()
+    got, walls = [], []
+    for k in range(HOST_PIPE_TICKS):
+        t0 = time.perf_counter()
+        res = ps.tick(host[:, k * BLOCK:(k + 1) * BLOCK])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if res is not None:
+            got.append(res[0])
+    got.extend(a for a, _ in ps.flush())
+    check_launches("6d pipelined stream", HOST_PIPE_TICKS)
+    got = np.concatenate(got, -1)
+    want, _st, _ms = ck.chain_kernel_stream(
+        chain, chain.init_state((1,), device), clip, metrics="final")
+    if not np.array_equal(got, want[0].cpu().numpy()):
+        raise AssertionError("6d: pipelined audio differs from "
+                             "chain_kernel_stream")
+    states = chain.init_state((1,), device)
+    for k in range(HOST_PIPE_PLAIN_TICKS):
+        out, states, _m = ck.chain_kernel_step_plain(
+            chain, states, clip[..., k * BLOCK:(k + 1) * BLOCK])
+        if not np.array_equal(got[:, k * BLOCK:(k + 1) * BLOCK],
+                              out[0].cpu().numpy()):
+            raise AssertionError(f"6d: tick {k} differs from the plain step "
+                                 f"on the card")
+    deadline = 1e3 * BLOCK / SR
+    timing = {"tick_p50_ms": pct(walls, 50), "tick_p95_ms": pct(walls, 95),
+              "deadline_ms": deadline, "latency_samples": ps.latency_samples}
+    print(f"6d PipelinedStream (canonical chain, depth {HOST_PIPE_DEPTH}, "
+          f"{HOST_PIPE_TICKS} ticks): one chain-kernel launch per tick, audio "
+          f"bit-equal to chain_kernel_stream and its first "
+          f"{HOST_PIPE_PLAIN_TICKS} ticks to the plain step on the card; "
+          f"tick wall p50 {timing['tick_p50_ms']:.3f} / p95 "
+          f"{timing['tick_p95_ms']:.3f} ms against {deadline:.3f} ms")
+    return timing
+
+
+def host_bridge(device):
+    """6e: HostBridge on the saturator over HOST_BRIDGE_BLOCKS blocks pushed
+    and pumped one at a time: every block back, in order, bit-equal to
+    run_corpus over the clip; x realtime and the per-block latency."""
+    from juicy_tpu_torch.parallel.corpus import run_corpus
+    from juicy_tpu_torch.runtime.host_bridge import HostBridge
+    from juicy_tpu_torch.runtime.plugin import Plugin
+
+    plug = Plugin("saturator", SR, CHANNELS, BLOCK)
+    params = plug.preset(PRESET)
+    clip = make_batch(1, CHANNELS, HOST_BRIDGE_BLOCKS * BLOCK, device,
+                      seed=79)
+    host = clip[0].cpu().numpy()
+    warm = HostBridge(plug, params)
+    warm.push_block(host[:, :BLOCK])
+    warm.process_available()
+    warm.stop()
+    bridge = HostBridge(plug, params)
+    reset_launches()
+    got, lat = [], []
+    t0 = time.perf_counter()
+    for k in range(HOST_BRIDGE_BLOCKS):
+        t1 = time.perf_counter()
+        if not bridge.push_block(host[:, k * BLOCK:(k + 1) * BLOCK]):
+            raise AssertionError(f"6e: block {k} refused by the ring")
+        bridge.process_available()
+        out = bridge.pop_block()
+        lat.append((time.perf_counter() - t1) * 1e3)
+        if out is None:
+            raise AssertionError(f"6e: block {k} lost")
+        got.append(out)
+    wall = time.perf_counter() - t0
+    extra = bridge.pop_block()
+    bridge.stop()
+    step = stage_steps()["saturator"]
+    if extra is not None or step.launches != HOST_BRIDGE_BLOCKS \
+            or other_launches(step):
+        raise AssertionError(f"6e: {step.launches} saturator launches for "
+                             f"{HOST_BRIDGE_BLOCKS} blocks")
+    want, _last, _agg = run_corpus(plug, params, clip)
+    got = np.concatenate(got, -1)
+    if not np.array_equal(got, want[0].cpu().numpy()):
+        raise AssertionError("6e: bridge output differs from run_corpus")
+    stage_b1_vs_plain("6e saturator", plug, params, clip, got)
+    x_rt = HOST_BRIDGE_BLOCKS * BLOCK / SR / wall
+    timing = {"x_realtime": x_rt, "latency_p50_ms": pct(lat, 50),
+              "latency_p95_ms": pct(lat, 95)}
+    print(f"6e HostBridge (saturator, {HOST_BRIDGE_BLOCKS} blocks): every "
+          f"block back in order, one saturator launch each, bit-equal to "
+          f"run_corpus; {x_rt:.2f}x realtime, push-to-pop p50 "
+          f"{timing['latency_p50_ms']:.3f} / p95 "
+          f"{timing['latency_p95_ms']:.3f} ms")
+    if x_rt < 1.0:
+        raise AssertionError(f"6e: HostBridge below realtime ({x_rt:.2f}x)")
+    return timing
+
+
+def host_alone(device):
+    """6f: one block of width, cohere and infer alone through StreamStep on
+    the card (Plugin.step: no kernel in either package), timed after one
+    warm-up block."""
+    from juicy_tpu_torch.runtime.host_bridge import StreamStep
+    from juicy_tpu_torch.runtime.plugin import Plugin
+
+    ms = {}
+    clip = make_batch(1, CHANNELS, 2 * BLOCK, device, seed=83)
+    for name in HOST_ALONE:
+        plug = Plugin(name, SR, CHANNELS, BLOCK)
+        stepper = StreamStep(plug, 1, device)
+        stepper.step(plug.default_params(), clip[..., :BLOCK])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stepper.step(plug.default_params(), clip[..., BLOCK:])
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+    print("6f one block alone on the card (Plugin.step, B = 1): " +
+          ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items()) +
+          f" (the block lasts {1e3 * BLOCK / SR:.3f} ms)")
+    return ms
+
+
+def phase_host(device):
+    """6: the host entry points on the card; raises on any failure."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as folder:
+        out.update(host_corpus(device, folder))
+        host_serve(device, folder)
+        out.update(host_process(device, folder))
+    out["pipelined"] = host_pipelined(device)
+    out["bridge"] = host_bridge(device)
+    out["alone_block_ms"] = host_alone(device)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 6: {out['phase_s']:.1f} s")
+    print(json.dumps({"host": out}))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run "
@@ -2080,6 +2464,9 @@ def main():
     device = torch.device("cuda", 0)
     phase_device()
     phase_build()
+    if sys.argv[1:] == ["--phase", "6"]:      # the host entry points alone
+        phase_host(device)
+        return 0
     plugin = Plugin("saturator", SR, CHANNELS, BLOCK)
     params = plugin.preset(PRESET)
     sat_timing = phase_kernel_vs_plain(device, plugin, params)
@@ -2096,6 +2483,7 @@ def main():
     pm_launches = phase_punch_motion_corpus(device)
     phase_chain(device)
     serve = phase_serve(device)
+    phase_host(device)
     ref = tex_timing[MATERIALS[REFERENCE_MATERIAL]]
     print(json.dumps({"kernels": [{
         "name": "saturator_stage",

@@ -13,9 +13,16 @@ block-major chain executor and ``run_corpus_chain`` (with per-block
 automation and per-clip materials), ``run_grouped``, serving
 (``StreamServer``, on the chain kernel with per-slot parameter rows),
 ``analyze_fused`` and ``saturator_step_fused``: every TPU kernel of the JAX
-package has its counterpart. Every entry point runs on the CUDA card unless the caller
-passes another ``device`` (``runtime/device.py``); ``device="cpu"`` is the
-plain route.
+package has its counterpart. Then the host-facing system: checkpoints
+(``runtime/state.py``, JAX's file format) and ``run_corpus_resumable``,
+the program API of ``Plugin``, WAV and native I/O (``runtime/wav.py``,
+``runtime/native.py``), ``runtime/observe.py``, the host bridge and the
+pipelined stream (``runtime/host_bridge.py``: a single stream steps through
+its plugin's stage kernel, the canonical chain through the chain kernel),
+the meter panel and web editor (``ui/``) and the CLI (``cli.py``,
+``python -m juicy_tpu_torch``). Every entry point runs on the CUDA card
+unless the caller passes another ``device`` (``runtime/device.py``);
+``device="cpu"`` is the plain route.
 """
 
 from juicy_tpu_torch.analyzer import analyze, analyzer_init
@@ -27,16 +34,25 @@ from juicy_tpu_torch.kernels.stage_kernels import (
     texture_stage_step, texture_stage_step_plain)
 from juicy_tpu_torch.models import get_processor
 from juicy_tpu_torch.parallel.corpus import (corpus_metrics, run_corpus,
-                                             run_corpus_chain)
+                                             run_corpus_chain,
+                                             run_corpus_resumable)
 from juicy_tpu_torch.parallel.grouping import run_grouped
+from juicy_tpu_torch.runtime.host_bridge import (HostBridge, PipelinedStream,
+                                                 StreamStep)
 from juicy_tpu_torch.runtime.plugin import Chain, Plugin
 from juicy_tpu_torch.runtime.serve import StreamServer
+from juicy_tpu_torch.runtime.state import (load_plugin_state, load_state,
+                                           save_plugin_state, save_state)
+from juicy_tpu_torch.runtime.wav import read_wav, write_wav
 
-__all__ = ["Chain", "Plugin", "StreamServer", "analyze", "analyze_fused",
+__all__ = ["Chain", "HostBridge", "PipelinedStream", "Plugin",
+           "StreamServer", "StreamStep", "analyze", "analyze_fused",
            "analyzer_init", "corpus_metrics",
-           "get_processor", "motion_stage_step", "motion_stage_step_plain",
-           "punch_stage_step", "punch_stage_step_plain", "run_corpus",
-           "run_corpus_chain", "run_grouped",
+           "get_processor", "load_plugin_state", "load_state",
+           "motion_stage_step", "motion_stage_step_plain",
+           "punch_stage_step", "punch_stage_step_plain", "read_wav",
+           "run_corpus", "run_corpus_chain", "run_corpus_resumable",
+           "run_grouped", "save_plugin_state", "save_state",
            "saturator_stage_step", "saturator_stage_step_plain",
            "saturator_step_fused",
-           "texture_stage_step", "texture_stage_step_plain"]
+           "texture_stage_step", "texture_stage_step_plain", "write_wav"]

@@ -25,6 +25,7 @@ import torch
 
 from juicy_tpu_torch.kernels import stage_kernels as sk
 from juicy_tpu_torch.ops.precise import F32
+from juicy_tpu_torch.runtime.observe import check_kernel_outputs
 
 
 def _analyzer_lanes_plain(x, lane0, lane_k):
@@ -59,6 +60,7 @@ def analyzer_launch(x, lane0, fin, acc, lane_k):
         raise RuntimeError(f"juicy_analyzer_block launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
     analyze_fused.launches += 1
+    check_kernel_outputs("juicy_analyzer_block", (fin, acc))
 
 
 def _analyzer_lanes_cuda(x, lane0, lane_k):

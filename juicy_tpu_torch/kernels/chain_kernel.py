@@ -70,6 +70,7 @@ from juicy_tpu_torch.models import width as _width
 from juicy_tpu_torch.ops import noise as _noise
 from juicy_tpu_torch.ops.precise import F32, f32, onepole_narrow
 from juicy_tpu_torch.runtime.chain_fused import block_params, chain_automation
+from juicy_tpu_torch.runtime.observe import check_kernel_outputs
 from juicy_tpu_torch.runtime.plugin import _default_finalize
 from juicy_tpu_torch.utils.convert import db_to_gain, jmap
 
@@ -575,6 +576,7 @@ class KernelChain:
             raise RuntimeError(f"{entry} launch failed: CUDA error "
                                f"{err} ({_build.error_string(lib, err)})")
         chain_kernel_step.launches += 1
+        check_kernel_outputs(entry, (out, fin, acc, fit))
         if self.wave:
             self.tex_widx = (self.tex_widx + self.n) % self.L
         self.haas_pos = (self.haas_pos + self.n) % self.D

@@ -36,11 +36,14 @@ from juicy_tpu_torch.models import saturator as _sat
 from juicy_tpu_torch.models import texture as _tex
 from juicy_tpu_torch.ops import noise as _noise
 from juicy_tpu_torch.ops.precise import F32, f32, onepole_narrow, tanh32
+from juicy_tpu_torch.runtime.observe import check_kernel_outputs
 
 # lane variables kept across the pre → post reset, in ``fin`` row order
 _LANE_FIN = (0, 1, 5, 6, 2)     # s_env, l_env, low, high, cooldown
 # accumulators, in ``acc`` row order
 _LANE_ACC = (3, 4, 7, 8, 9, 10, 11, 12, 13, 14)
+# the kernels' lane output buffers
+_LANE_BUFS = ("pre_fin", "pre_acc", "post_fin", "post_acc")
 
 
 @functools.lru_cache(maxsize=16)
@@ -218,6 +221,8 @@ def sat_cuda_launch(bufs, scalars):
     if err != 0:
         raise RuntimeError(f"juicy_saturator_stage launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
+    check_kernel_outputs("juicy_saturator_stage",
+                         (bufs[k] for k in ("out", "tone_out", *_LANE_BUFS)))
 
 
 def sat_lanes_cuda(step, x, tone0, lane0, scalars):
@@ -441,17 +446,25 @@ def texture_kernel_state(dsp, mode):
     st["rng"] = _noise.u32_to_i32_bits(dsp["rng"])
     if tex_has_wave(mode):
         wave_index(dsp, mode)
-        st["waveguide"] = dsp["waveguide"].permute(2, 1, 0).contiguous()
+        st["waveguide"] = _ring_copy(dsp["waveguide"])
     return st
+
+
+def _ring_copy(ring):
+    """The ring with its first and last axes swapped, in a tensor of its
+    own: ``contiguous()`` would hand back the same storage where the swap
+    leaves it contiguous (one mono clip), and the kernel's in-place
+    updates would then reach the caller's state."""
+    return ring.permute(2, 1, 0).clone(memory_format=torch.contiguous_format)
 
 
 def texture_ring_state(dsp, mode):
     """Kernel form -> texture state: the inverse of texture_kernel_state,
-    exact."""
+    exact, with the ring in a new tensor."""
     st = dict(dsp)
     st["rng"] = _noise.i32_bits_to_u32(dsp["rng"])
     if tex_has_wave(mode):
-        st["waveguide"] = dsp["waveguide"].permute(2, 1, 0).contiguous()
+        st["waveguide"] = _ring_copy(dsp["waveguide"])
     return st
 
 
@@ -728,6 +741,8 @@ def tex_cuda_launch(bufs, params, sr: float, mode):
         raise RuntimeError(f"juicy_texture_stage launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
     texture_stage_step.launches += 1
+    check_kernel_outputs("juicy_texture_stage", (bufs[k] for k in (
+        "out", "dsp_out", "mat_out", "ring", *_LANE_BUFS)))
 
 
 def _tex_lanes_cuda(x, dsp, lane0, params, sr: float, mode):
@@ -948,6 +963,8 @@ def punch_cuda_launch(bufs, params, sr: float):
         raise RuntimeError(f"juicy_punch_stage launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
     punch_stage_step.launches += 1
+    check_kernel_outputs("juicy_punch_stage",
+                         (bufs[k] for k in ("out", "env_out", *_LANE_BUFS)))
 
 
 def _punch_lanes_cuda(x, dsp, lane0, params, sr: float):
@@ -1003,6 +1020,8 @@ def motion_cuda_launch(bufs, params, sr: float):
         raise RuntimeError(f"juicy_motion_stage launch failed: CUDA error "
                            f"{err} ({_build.error_string(lib, err)})")
     motion_stage_step.launches += 1
+    check_kernel_outputs("juicy_motion_stage", (bufs[k] for k in (
+        "out", "mono_out", "chan_out", *_LANE_BUFS)))
 
 
 def _motion_lanes_cuda(x, dsp, lane0, params, sr: float):

@@ -55,9 +55,20 @@ class ProcessorDef:
     init: Callable[..., Any]        # (sr, channels, batch_shape, device) -> carry
     process: Callable[..., Any]     # (params, carry, block, sr) -> (out, carry)
     finalize_metrics: Optional[Callable[..., Any]] = None
+    show_ghost_stats: bool = False          # the meter panel's options
+    show_triangle_metrics: bool = False
     # Parameters that select code paths (texture's material index); the
     # Plugin holds them as Python ints (Plugin.with_static), not tensors.
     static_params: Tuple[str, ...] = ()
+
+    def param(self, pid: str) -> ParamSpec:
+        for p in self.params:
+            if p.id == pid:
+                return p
+        raise KeyError(f"{self.name}: no parameter {pid!r}")
+
+    def preset_names(self) -> Tuple[str, ...]:
+        return tuple(nm for nm, _ in self.presets)
 
     def default_params(self) -> Dict[str, torch.Tensor]:
         """Defaults, then preset 0 applied on top (the reference

@@ -77,4 +77,6 @@ base.register(base.ProcessorDef(
     init=init,
     process=process,
     finalize_metrics=finalize_metrics,
+    show_ghost_stats=True,
+    show_triangle_metrics=True,
 ))

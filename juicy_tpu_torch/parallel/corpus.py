@@ -136,6 +136,54 @@ def run_corpus(plugin: Plugin, params, clips, use_kernel: str = "auto",
     return out, last, corpus_metrics(last)
 
 
+def run_corpus_resumable(plugin: Plugin, params, clips, checkpoint_path: str,
+                         macro_batch: int = 256, mesh=None,
+                         save_every: int = 1, device=None):
+    """Corpus scoring with a checkpoint after every `save_every` macro
+    batches, so that an interrupted job resumes where it stopped.
+
+    The [B, C, T] clips go through ``run_corpus`` in macro batches of
+    `macro_batch` clips on `device` (the card when None; the stage kernel
+    for punch, the saturator, texture and motion there, the plain route
+    for ``"cpu"``). The checkpoint (runtime/state.py) holds the cursor
+    ``{"done": int32}`` as its params, the per-clip scores
+    ``{"scores": float32 [B]}`` as its state and ``total`` in its meta, as
+    JAX's does: a job that either package interrupted resumes in the
+    other. Clips are independent, so the last batch is not padded.
+    Returns the per-clip final-block scores, numpy float32 [B]."""
+    import os
+
+    from juicy_tpu_torch.runtime.state import load_state, save_state
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_corpus_resumable(mesh=) is not ported: the corpus runs on "
+            "one card (ROADMAP.md, Queue 1 item 9: more than one GPU)")
+    b = clips.shape[0]
+    scores = np.zeros((b,), np.float32)
+    cursor = {"done": torch.tensor(0, dtype=torch.int32)}
+    if os.path.exists(checkpoint_path):
+        cursor, saved, _meta = load_state(checkpoint_path, cursor,
+                                          {"scores": scores}, device="cpu")
+        scores = saved["scores"].numpy().copy()
+    done = int(cursor["done"])
+    since_save = 0
+    while done < b:
+        end = min(b, done + macro_batch)
+        _out, last, _agg = run_corpus(plugin, params, clips[done:end],
+                                      device=device)
+        scores[done:end] = last["score"].cpu().numpy()
+        done = end
+        since_save += 1
+        if since_save >= save_every or done >= b:
+            save_state(checkpoint_path,
+                       {"done": torch.tensor(done, dtype=torch.int32)},
+                       {"scores": torch.from_numpy(scores)},
+                       meta={"total": b})
+            since_save = 0
+    return scores
+
+
 def _texture_stage(chain) -> int:
     for i, plug in enumerate(chain.plugins):
         if plug.defn.name == "texture":

@@ -11,6 +11,7 @@ tensors. PyTorch port of juicy_tpu/runtime/plugin.py (``Plugin`` and
   (a per-clip material)   ``plugin.with_traced("material")``
   processBlock            ``plugin.step(params, state, block)``
   setCurrentProgram       ``plugin.preset(name_or_index)``
+  get/setStateInformation ``runtime.state.save_plugin_state`` / ``load_``
   a channel strip         ``Chain([(name, preset), ...], sr, ...)``
   =====================  =======================================
 
@@ -95,7 +96,50 @@ class Plugin:
         return self._split_static(self.defn.default_params())[0]
 
     def preset(self, preset) -> Dict[str, torch.Tensor]:
-        return self._split_static(self.defn.preset_params(preset))[0]
+        params = self._split_static(self.defn.preset_params(preset))[0]
+        # the current program, as setCurrentProgram keeps it
+        if self.defn.presets:
+            if isinstance(preset, str):
+                self._current_program = self.defn.preset_names().index(preset)
+            else:
+                self._current_program = max(
+                    0, min(len(self.defn.presets) - 1, int(preset)))
+        return params
+
+    # -- the program API (JuicyPunch/PluginProcessor.cpp:147-187) ----------
+
+    @property
+    def num_programs(self) -> int:
+        """getNumPrograms: the preset count, at least 1."""
+        return max(1, len(self.defn.presets))
+
+    @property
+    def current_program(self) -> int:
+        """getCurrentProgram: the index last applied by preset() or
+        set_program()."""
+        return getattr(self, "_current_program", 0)
+
+    def set_program(self, index: int) -> Dict[str, torch.Tensor]:
+        """setCurrentProgram: clamps the index, returns the preset's
+        params."""
+        return self.preset(int(index))
+
+    def program_name(self, index: int) -> str:
+        """getProgramName, the index clamped."""
+        names = self._names()
+        return names[max(0, min(len(names) - 1, int(index)))]
+
+    def change_program_name(self, index: int, name: str) -> None:
+        """changeProgramName: renames a program in this instance's table
+        (kept by save_plugin_state); an index out of range does nothing."""
+        names = list(self._names())
+        if 0 <= int(index) < len(names):
+            names[int(index)] = str(name)
+            self._program_names = names
+
+    def _names(self):
+        return getattr(self, "_program_names", None) or \
+            list(self.defn.preset_names()) or [self.defn.title]
 
     def _split_static(self, params):
         """(params without the static ones, the static ones as ints); traced

@@ -31,7 +31,11 @@ a NaN sample and on non-contiguous blocks; ``saturator_step_fused``
 against its plain version and the saturator stage step; the chain
 kernel with per-clip constant rows (at the same batches) against its plain
 version run once per distinct row, and the serving pool on the card
-against the plain step with the same rows. The inputs
+against the plain step with the same rows. The host entry points:
+``PipelinedStream``'s kernel path at B = 1 against the plain step, one
+launch per tick; ``HostBridge`` on the saturator at 1x realtime or faster
+over 200 blocks; the CLI's corpus command against ``run_corpus_chain``.
+The inputs
 are made here, from a seed, so that the file needs nothing of the JAX
 test harness.
 """
@@ -50,6 +54,9 @@ B, N = 300, 256
 #: batches that are not a multiple of the warp-role kernels' 32 clips per
 #: CTA (the chain, texture and punch kernels)
 RAGGED = (45, 4099)
+#: one stream: StreamStep's batch (HostBridge, process, score, --live), one
+#: CTA with one busy lane
+SINGLE = 1
 #: a block length that is not a multiple of the stage kernels' chunk
 N_ODD = 203
 #: a block length shorter than one chunk
@@ -73,11 +80,11 @@ def _clips(seed, channels, blocks, device, batch=B, n=N):
     return torch.from_numpy(np.clip(x, -0.99, 0.99).astype(np.float32)).to(device)
 
 
-#: (batch, block length) of the saturator and motion cases: the default, the
-#: ragged batches (the last CTA part-filled), an odd block length and one
-#: shorter than a chunk
-_STAGE_SHAPES = [(B, N), (RAGGED[0], N), (RAGGED[1], N), (RAGGED[0], N_ODD),
-                 (RAGGED[0], N_SHORT)]
+#: (batch, block length) of the saturator cases: the default, the ragged
+#: batches (the last CTA part-filled), one stream, an odd block length and
+#: one shorter than a chunk
+_STAGE_SHAPES = [(B, N), (RAGGED[0], N), (RAGGED[1], N), (SINGLE, N),
+                 (SINGLE, N_ODD), (RAGGED[0], N_ODD), (RAGGED[0], N_SHORT)]
 
 
 def _raw_lanes(name, route, params, st, blk, sr=SR):
@@ -187,12 +194,13 @@ def _kernel_form(st, material):
 
 
 # (material, batch, block length, sample rate): every material at the
-# default batch, the ragged ones and an odd block length; plastic at 3 kHz,
-# where its waveguide delay is 8 samples, one chunk, and the
-# interpolation's second tap falls inside the chunk being written
+# default batch, the ragged ones, one stream and an odd block length;
+# plastic at 3 kHz, where its waveguide delay is 8 samples, one chunk, and
+# the interpolation's second tap falls inside the chunk being written
 _TEX_CASES = [(m, b, n, SR) for m in range(5)
               for b, n in ((B, N), (RAGGED[0], N), (RAGGED[1], N),
-                           (RAGGED[0], N_ODD))] + [(3, RAGGED[0], N, 3000.0)]
+                           (SINGLE, N), (RAGGED[0], N_ODD))] + [
+    (3, RAGGED[0], N, 3000.0)]
 
 
 @pytest.mark.cuda
@@ -271,7 +279,7 @@ def test_texture_run_corpus_always_on_card(cuda_device):
 
 # (name, params, batch, block length) per case: params are a preset name,
 # or a dict over the defaults; punch and motion also at the ragged batches,
-# an odd block length and one shorter than a chunk
+# one stream, an odd block length and one shorter than a chunk
 _PUNCH_MOTION = [("punch", "Solar Snap", B, N), ("punch", "Apocalypse Tap", B, N),
                  ("motion", None, B, N),
                  ("motion", dict(microvar=0.9, motiondepth=1.8,
@@ -284,7 +292,13 @@ _PUNCH_MOTION = [("punch", "Solar Snap", B, N), ("punch", "Apocalypse Tap", B, N
                  ("motion", dict(microvar=0.9, motiondepth=1.8,
                                  repeatctrl=0.2, budget=0.9, mix=0.7),
                   RAGGED[0], N_ODD),
-                 ("motion", None, RAGGED[0], N_SHORT)]
+                 ("motion", None, RAGGED[0], N_SHORT),
+                 ("punch", "Solar Snap", SINGLE, N),
+                 ("punch", "Apocalypse Tap", SINGLE, N_ODD),
+                 ("motion", None, SINGLE, N),
+                 ("motion", dict(microvar=0.9, motiondepth=1.8,
+                                 repeatctrl=0.2, budget=0.9, mix=0.7),
+                  SINGLE, N_ODD)]
 
 
 def _params(plug, preset):
@@ -1073,3 +1087,99 @@ def test_mixed_materials_run_corpus_on_card(cuda_device):
     out_n, last_n, _ = run_corpus(plug, params, clips, use_kernel="never")
     assert float((out_k.double() - out_n.double()).abs().max()) <= 1e-5
     assert float((last_k["score"] - last_n["score"]).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_pipelined_stream_kernel_path_on_card(cuda_device):
+    """PipelinedStream on the canonical chain at B = 1: one chain-kernel
+    launch per tick, its audio and metrics bit-equal to the chain kernel's
+    plain step on the card, block by block."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.runtime.host_bridge import PipelinedStream
+
+    chain = _chain(0, learn=False)
+    clip = _bursts(83, 3, cuda_device, batch=1)
+    host = clip[0].cpu().numpy()
+    ps = PipelinedStream(chain, depth=1)
+    assert ps.kernel_path and ps.latency_samples == N
+    got = []
+    for k in range(3):
+        before = ck.chain_kernel_step.launches
+        res = ps.tick(host[:, k * N:(k + 1) * N])
+        assert ck.chain_kernel_step.launches == before + 1
+        if res is not None:
+            got.append(res)
+    got.extend(ps.flush())
+    states = chain.init_state((1,), cuda_device)
+    for k in range(3):
+        out, states, ms = ck.chain_kernel_step_plain(
+            chain, states, clip[..., k * N:(k + 1) * N])
+        np.testing.assert_array_equal(got[k][0], out[0].cpu().numpy())
+        want = {key: float(v[0]) for key, v in ms[-1].items()}
+        for key, v in want.items():
+            assert abs(got[k][1][key] - v) <= 1e-5 * max(1.0, abs(v)), key
+
+
+@pytest.mark.cuda
+def test_host_bridge_realtime_on_card(cuda_device):
+    """HostBridge on the saturator keeps up with the audio: 200 blocks of
+    512 pushed and pumped one at a time at 1x realtime or faster, one
+    stage-kernel launch each, every block back in order."""
+    import time
+
+    from juicy_tpu_torch.runtime.host_bridge import HostBridge
+
+    n, blocks = 512, 200
+    plug = Plugin("saturator", SR, 2, n)
+    clip = _clips(89, 2, blocks, "cpu", batch=1, n=n)[0].numpy()
+    warm = HostBridge(plug)
+    warm.push_block(clip[:, :n])
+    warm.process_available()
+    warm.stop()
+    bridge = HostBridge(plug)
+    before = sk.saturator_stage_step.launches
+    got = []
+    t0 = time.perf_counter()
+    for k in range(blocks):
+        assert bridge.push_block(clip[:, k * n:(k + 1) * n])
+        bridge.process_available()
+        got.append(bridge.pop_block())
+    wall = time.perf_counter() - t0
+    bridge.stop()
+    assert sk.saturator_stage_step.launches == before + blocks
+    assert all(g is not None for g in got)
+    want, _l, _a = run_corpus(plug, plug.default_params(),
+                              torch.from_numpy(clip[None]).to(cuda_device))
+    np.testing.assert_array_equal(np.concatenate(got, -1),
+                                  want[0].cpu().numpy())
+    assert blocks * n / SR / wall >= 1.0
+
+
+@pytest.mark.cuda
+def test_cli_corpus_on_card(cuda_device, tmp_path):
+    """The CLI's corpus command on the card (the chain kernel, two macro
+    batches) writes what run_corpus_chain gives on the same clips, bit for
+    bit."""
+    import os
+
+    from juicy_tpu_torch.cli import main
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.parallel.corpus import run_corpus_chain
+    from juicy_tpu_torch.runtime.wav import read_wav, write_wav
+
+    clips = _bursts(97, 3, cuda_device, batch=5)
+    paths = []
+    for i in range(5):
+        paths.append(str(tmp_path / f"c{i}.wav"))
+        write_wav(paths[-1], clips[i].cpu().numpy(), int(SR))
+    stages = ("punch:Solar Snap,saturator:Amber Heat,texture,motion,"
+              "width:Prism Arc,cohere,infer:Reference Lens")
+    before = ck.chain_kernel_step.launches
+    main(["corpus", *paths, "--stages", stages, "--block", str(N),
+          "--out-dir", str(tmp_path / "out"), "--batch", "3"])
+    assert ck.chain_kernel_step.launches == before + 2 * 3
+    chain = _chain(0, learn=False)
+    want, _ms, _a = run_corpus_chain(chain, clips)
+    for i, p in enumerate(paths):
+        got, _ = read_wav(str(tmp_path / "out" / os.path.basename(p)))
+        np.testing.assert_array_equal(got, want[i].cpu().numpy())

@@ -153,7 +153,9 @@ def test_port_imports_no_jax():
             "'ops.shapers', 'runtime.plugin', 'kernels.chain_kernel', "
             "'runtime.chain_fused', 'parallel.corpus', "
             "'kernels.analyzer_kernel', 'kernels.saturator_kernel', "
-            "'runtime.serve')); "
+            "'runtime.serve', 'runtime.state', 'runtime.wav', "
+            "'runtime.native', 'runtime.observe', 'runtime.host_bridge', "
+            "'ui.meters', 'ui.web', 'cli', '__main__')); "
             "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules); "
             "assert not any(m == 'juicy_tpu' or m.startswith('juicy_tpu.') "
             "for m in sys.modules)")
