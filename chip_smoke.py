@@ -8,8 +8,10 @@ clips of 94 blocks of 512 stereo samples at 48 kHz through the seven-stage
 chain kernel), punch, saturator, texture and motion corpus scoring
 (``run_corpus``, 4096 clips of the same length), the seven-stage ``Chain``
 and chain executor, serving (``StreamServer``, 4096 live streams on the
-chain kernel), ``analyze_fused`` and ``saturator_step_fused``; inputs made
-on the card from a seed. Phases, each of which raises on failure:
+chain kernel), ``analyze_fused`` and ``saturator_step_fused``, the host
+entry points, the relaxed tier (``relaxed_chain_stream``) and the mesh
+entry points; inputs made on the card from a seed. Phases, each of which
+raises on failure:
 
 1.  the card's name and power limit (nvidia-smi), torch and CUDA versions;
 2.  build the CUDA kernels from ``juicy_tpu_torch/csrc`` (one nvcc per
@@ -71,7 +73,9 @@ on the card from a seed. Phases, each of which raises on failure:
     bit), as 4e does: at full depth they would take the script past
     ~1,100 s of its 1,200;
 4c. ``run_corpus`` punch ("Solar Snap") and motion (defaults, its LCG) at
-    full width on the burst input, checked as 4 at full depth;
+    full width on the burst input, checked as 4: punch at full depth,
+    motion (its never-path ~164-235 s at full depth) over the first 256
+    clips x 8 blocks, so that phases 7 and 8 fit the time limit;
 4d. the seven-stage ``Chain`` of bench.py (``Chain.batched_run``) on the
     card at B = 256, two blocks, against the same call on the CPU: audio
     <= -100 dBFS, every stage's metrics within 1e-5 of max(1, |value|); and
@@ -139,7 +143,31 @@ on the card from a seed. Phases, each of which raises on failure:
     ``run_corpus`` and its first 3 blocks to the plain stage step on the
     card, at least 1x realtime); one block alone of width, cohere
     and infer (no kernel: ``Plugin.step``), timed. ``--phase 6`` runs this
-    phase alone, after the build.
+    phase alone, after the build;
+7.  the relaxed tier: ``relaxed_chain_stream`` on bench.py's chain at
+    B = 256 (bench.py:820), 94 blocks of the burst input: finite, scores in
+    [0, 100], no launch of the port's kernels; against ``run_corpus_chain
+    (metrics="blocks")`` gated over the first 4 blocks (the depth JAX
+    certified: <= -90 dBFS, the last stage's scores within 0.01) and
+    reported over all 94 (the residual per block, the first past -90
+    dBFS); the same call on the CPU over 16 clips x 2 blocks (<= -110
+    dBFS, metrics within 1e-5 of max(1, |value|), onset counts, cooldowns
+    and motion's rng equal); the warm wall and audio-s/s, the launches
+    per block (``torch.profiler``) and one block at B = 8192, timed.
+    ``--phase 7`` runs it alone;
+8.  the mesh: every visible card, or ``[cuda:0, cuda:0]`` on one (the
+    split and the gather only): ``run_corpus_chain`` at B = 8192 (94
+    blocks, ``metrics="blocks"``) and ``run_corpus`` saturator at B =
+    4096, every output bit-equal to the unsharded run, 94 launches per
+    shard; ``run_corpus_resumable`` (macro batches of 301, padded) with
+    the unsharded scores; ``StreamServer(mesh=)`` with 8 slots on JAX's
+    script (tests/test_serve.py:278-307): the kernel tick bit-equal to the
+    solo server, the fused tick bit-equal to a solo server of its pools'
+    size and within JAX's tolerances of the solo server (PyTorch's CUDA
+    sums follow the batch's shape); ``sequence_parallel_linear_scan`` at
+    T = 94 x 512 bit-equal to the same split on the CPU and within JAX's
+    rtol 1e-4 / atol 1e-5 of ``linear_scan_assoc``. ``--phase 8`` runs it
+    alone.
 
 Before each path every launch count is set to 0, and read after it.
 The line before the last is a JSON summary of the kernels, with each one's
@@ -186,7 +214,7 @@ RAGGED_BATCH = 100
 CHAIN_CHECK_BLOCKS = 8
 #: corpus paths whose never-path check runs at full depth (4, 4b, 4c); the
 #: others run CHAIN_CHECK_BLOCKS blocks
-FULL_DEPTH_CHECKS = ("saturator", "texture wood", "punch", "motion")
+FULL_DEPTH_CHECKS = ("saturator", "texture wood", "punch")
 SERVE_SLOTS = 4096               # bench.py:658, bench_serve_e2e's rows_at
 SERVE_BLOCKS = 12
 SERVE_CHECK_SLOTS = 64
@@ -207,6 +235,16 @@ AUTOMATION = {1: {"drive": [3.0, 15.0, 6.0]}, 0: {"mix": [0.4, 1.0]},
 PUNCH_AUTOMATION = {"punch": [0.2, 1.4, 0.7, 1.1], "mix": [1.0, 0.6]}
 CORPUS_MATERIALS = (0, 1, 2)      # bench.py's texture rows
 REFERENCE_MATERIAL = 1            # the texture row of the kernels line
+RELAXED_BATCH = 256               # bench.py:820, full_chain_relaxed_b256
+#: the depth at which JAX certified the relaxed tier (tests/test_relaxed.py)
+RELAXED_GATED_BLOCKS = 4
+RELAXED_CPU_CLIPS = 16
+RELAXED_CPU_BLOCKS = 2
+RELAXED_WIDE_BATCH = 8192
+MESH_CORPUS_BATCH = 4096          # run_corpus's width (4)
+MESH_RESUME_CLIPS = 1024
+MESH_MACRO = 301                  # not a multiple of the mesh: padded
+MESH_SLOTS = 8                    # tests/test_serve.py:278-307
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bytes/s, f32 FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -1859,10 +1897,10 @@ def phase_saturator_step_fused(device, plugin, params):
 def pool_states(srv, template):
     """A copy of a CUDA pool's whole state in the Chain form (cohere's
     context fit, an output of the block, left as in `template`)."""
-    kc = srv._kc.clone()
+    kc = srv._pools[0].kc.clone()
     dsps = kc.unpack(template, template[5]["dsp"]["context_fit"])
     return [{"analyzer": {k: v.clone() for k, v in st["analyzer"].items()},
-             "dsp": d} for st, d in zip(srv._states, dsps)]
+             "dsp": d} for st, d in zip(srv._pools[0].states, dsps)]
 
 
 def serve_ticks(srv, sids, block, ks):
@@ -1947,7 +1985,7 @@ def phase_serve(device):
     edited_launches = chain_step().launches
     check_launches("serve with per-slot rows", 2)
     after = pool_states(srv, template)
-    rows = srv._param_rows()
+    rows = srv._pools[0].param_rows()
     settings = len(rows.groups)
     out_d, _st, m_d = ck.chain_kernel_step(
         chain, snap, torch.from_numpy(block(8)).to(device), params_rows=rows)
@@ -2455,6 +2493,365 @@ def phase_host(device):
     return out
 
 
+class OnsetRecorder:
+    """Records every onset count the relaxed tier's detector returns
+    (``runtime/relaxed.py::_first_onset``), in call order, on the CPU."""
+
+    def __enter__(self):
+        from juicy_tpu_torch.runtime import relaxed as trx
+
+        self._mod, self._orig, self.counts = trx, trx._first_onset, []
+
+        def spy(*args):
+            res = self._orig(*args)
+            self.counts.append(res[0].cpu())
+            return res
+        trx._first_onset = spy
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._first_onset = self._orig
+
+
+def relaxed_block_db(out, ref, n):
+    """The residual in dBFS of each block of `out` against `ref`."""
+    d = (out.double() - ref.double()).abs().amax(dim=(0, 1))
+    d = d.reshape(-1, n).amax(dim=1)
+    return [-math.inf if float(v) == 0 else 20.0 * math.log10(float(v))
+            for v in d]
+
+
+def phase_relaxed(device):
+    """7: relaxed_chain_stream (the relaxed tier) on the card; raises on
+    any failure."""
+    from juicy_tpu_torch.parallel.corpus import run_corpus_chain
+    from juicy_tpu_torch.runtime.plugin import Chain
+    from juicy_tpu_torch.runtime.relaxed import relaxed_chain_stream
+
+    t_phase = time.perf_counter()
+    b, n, nb = RELAXED_BATCH, BLOCK, NUM_BLOCKS
+    chain = Chain(CHAIN, SR, CHANNELS, n)
+    clips = make_clicks(b, CHANNELS, nb * n, device, seed=71)
+    relaxed_chain_stream(chain, chain.init_state((b,), device),
+                         clips[..., :n])                      # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out, _st, ms = relaxed_chain_stream(chain, chain.init_state((b,), device),
+                                        clips)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kernels = sum(s.launches for s in all_steps())
+    if kernels:
+        raise AssertionError(f"relaxed chain: {kernels} launches of the "
+                             f"port's hand-written kernels (it has none)")
+    if tuple(out.shape) != tuple(clips.shape) or not bool(
+            torch.isfinite(out).all()):
+        raise AssertionError("relaxed chain output is not finite or has the "
+                             "wrong shape")
+    for s_, m in enumerate(ms):
+        for key, v in m.items():
+            if tuple(v.shape) != (nb, b) or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"relaxed stage {s_} metric {key} is "
+                                     f"not finite [nb, B]")
+        for key in ("score", "pre_score", "post_score"):
+            if not bool(((m[key] >= 0) & (m[key] <= 100)).all()):
+                raise AssertionError(f"relaxed stage {s_} {key} outside "
+                                     f"[0, 100]")
+    rate = b * nb * n / SR / wall
+    print(f"relaxed_chain_stream B={b} T={nb * n}: {wall:.4f} s warm, "
+          f"{rate:.1f} audio-s/s, {wall / nb * 1e3:.2f} ms per block")
+
+    # against the chain kernel: gated over the depth JAX certified,
+    # reported over the whole corpus
+    out_k, ms_k, _agg = run_corpus_chain(chain, clips, metrics="blocks")
+    torch.cuda.synchronize()
+    g = RELAXED_GATED_BLOCKS
+    db_gated = residual_dbfs(out[..., :g * n], out_k[..., :g * n])
+    ds_gated = max(max_diff(m["score"][g - 1], mk["score"][g - 1])
+                   for m, mk in zip(ms, ms_k))
+    ds_last = max_diff(ms[-1]["score"][g - 1], ms_k[-1]["score"][g - 1])
+    per_block = relaxed_block_db(out, out_k, n)
+    past = next((k for k, v in enumerate(per_block) if v > -90.0), None)
+    ds_full = max(max_diff(m["score"], mk["score"]) for m, mk in zip(ms, ms_k))
+    print(f"relaxed vs chain kernel, first {g} blocks: audio {db_gated:.1f} "
+          f"dBFS, last stage's block-{g} scores {ds_last:.3g} (every "
+          f"stage's {ds_gated:.3g}); all {nb} blocks (reported, not "
+          f"gated): audio {max(per_block):.1f} dBFS, scores {ds_full:.3g}, "
+          f"first block past -90 dBFS: {past}")
+    print("relaxed vs chain kernel, per block (dBFS): "
+          + " ".join(f"{v:.1f}" for v in per_block))
+    if db_gated > -90.0 or ds_last > 0.01:
+        raise AssertionError("relaxed chain: beyond JAX's certification bar "
+                             "against the chain kernel")
+    del out_k, ms_k
+
+    # the same call on the CPU
+    sub = clips[:RELAXED_CPU_CLIPS, :, :RELAXED_CPU_BLOCKS * n]
+    with OnsetRecorder() as rec_g:
+        out_g, st_g, ms_g = relaxed_chain_stream(
+            chain, chain.init_state((sub.shape[0],), device), sub)
+    t0 = time.perf_counter()
+    with OnsetRecorder() as rec_c:
+        out_c, st_c, ms_c = relaxed_chain_stream(
+            chain, chain.init_state((sub.shape[0],), "cpu"), sub.cpu(),
+            device="cpu")
+    cpu_s = time.perf_counter() - t0
+    db_cpu = residual_dbfs(out_g.cpu(), out_c)
+    rel = max(float(((mg[k].cpu().double() - mc[k].double()).abs()
+                     / mc[k].double().abs().clamp(min=1.0)).max())
+              for mg, mc in zip(ms_g, ms_c) for k in mc)
+    counts_eq = len(rec_g.counts) == len(rec_c.counts) and all(
+        torch.equal(a, c) for a, c in zip(rec_g.counts, rec_c.counts))
+    states_eq = all(torch.equal(sg["analyzer"]["onset_cooldown"].cpu(),
+                                sc["analyzer"]["onset_cooldown"])
+                    for sg, sc in zip(st_g, st_c)) and all(
+        torch.equal(st_g[3]["dsp"][k].cpu(), st_c[3]["dsp"][k])
+        for k in ("rng", "onset_cooldown"))
+    print(f"relaxed card vs CPU, {sub.shape[0]} clips x {RELAXED_CPU_BLOCKS} "
+          f"blocks: audio {db_cpu:.1f} dBFS, metrics {rel:.3g} of "
+          f"max(1, |value|), onset counts equal ({len(rec_g.counts)} "
+          f"calls): {counts_eq}, cooldowns and motion's rng equal: "
+          f"{states_eq} (CPU {cpu_s:.1f} s)")
+    if db_cpu > -110.0 or rel > 1e-5 or not counts_eq or not states_eq:
+        raise AssertionError("relaxed chain: the card disagrees with the CPU")
+
+    # launches per block, and one block at B = 8192
+    from torch.profiler import ProfilerActivity, profile
+    blk = clips[..., :n]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        relaxed_chain_stream(chain, chain.init_state((b,), device), blk)
+        torch.cuda.synchronize()
+    per_block_launches = sum(e.count for e in prof.key_averages()
+                             if e.key == "cudaLaunchKernel")
+    wide = make_clicks(RELAXED_WIDE_BATCH, CHANNELS, n, device, seed=73)
+    st_w = chain.init_state((RELAXED_WIDE_BATCH,), device)
+    relaxed_chain_stream(chain, st_w, wide)                   # warm-up
+    torch.cuda.synchronize()
+    st_w = chain.init_state((RELAXED_WIDE_BATCH,), device)
+    t0 = time.perf_counter()
+    relaxed_chain_stream(chain, st_w, wide)
+    torch.cuda.synchronize()
+    wide_ms = (time.perf_counter() - t0) * 1e3
+    print(f"relaxed chain: {per_block_launches} cudaLaunchKernel per block "
+          f"at B={b} (torch.profiler); one block at B={RELAXED_WIDE_BATCH}: "
+          f"{wide_ms:.1f} ms ({RELAXED_WIDE_BATCH * n / SR / wide_ms * 1e3:.1f}"
+          f" audio-s/s)")
+    res = {"batch": b, "blocks": nb, "wall_s": wall, "audio_s_per_s": rate,
+           "block_ms": wall / nb * 1e3, "vs_kernel_gated_dbfs": db_gated,
+           "vs_kernel_gated_score": ds_last, "vs_kernel_full_dbfs":
+           max(per_block), "vs_kernel_full_score": ds_full,
+           "first_block_past_90": past, "vs_cpu_dbfs": db_cpu,
+           "vs_cpu_metrics": rel, "launches_per_block": per_block_launches,
+           "wide_block_ms": wide_ms,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"phase 7: {res['phase_s']:.1f} s")
+    print(json.dumps({"relaxed": res}))
+    return res
+
+
+def same_tree(tag, got, want):
+    """Every tensor of two nested results bit-equal (None where None)."""
+    if isinstance(want, dict):
+        for k in want:
+            same_tree(f"{tag}/{k}", got[k], want[k])
+    elif isinstance(want, (list, tuple)):
+        for i, (g, w) in enumerate(zip(got, want, strict=True)):
+            same_tree(f"{tag}/{i}", g, w)
+    elif want is None:
+        if got is not None:
+            raise AssertionError(f"{tag}: None expected")
+    elif not torch.equal(got, want):
+        raise AssertionError(f"{tag}: the sharded result differs")
+
+
+def shard_launches(corpus, name, step, run):
+    """`run()` with `corpus.<name>` spied: the launches of `step` in each
+    inner (per-shard) call."""
+    orig = getattr(corpus, name)
+    per = []
+
+    def spy(*args, **kw):
+        before = step.launches
+        res = orig(*args, **kw)
+        per.append(step.launches - before)
+        return res
+    setattr(corpus, name, spy)
+    try:
+        return run(orig), per
+    finally:
+        setattr(corpus, name, orig)
+
+
+def phase_mesh(device):
+    """8: the mesh entry points; raises on any failure."""
+    import tempfile
+
+    from juicy_tpu_torch.ops.scan_utils import linear_scan_assoc
+    from juicy_tpu_torch.parallel import corpus
+    from juicy_tpu_torch.parallel.mesh import make_mesh
+    from juicy_tpu_torch.parallel.timeshard import \
+        sequence_parallel_linear_scan
+    from juicy_tpu_torch.runtime.plugin import Chain, Plugin
+    from juicy_tpu_torch.runtime.serve import StreamServer
+
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    devices = ([torch.device("cuda", i) for i in range(cards)] if cards > 1
+               else [device, device])
+    mesh = make_mesh(devices=devices)
+    k = mesh.size
+    print(f"phase 8 mesh: {[str(d) for d in devices]} ("
+          + ("every visible card" if cards > 1 else
+             "cuda:0 twice: the split and the gather only") + ")")
+    res = {"devices": [str(d) for d in devices]}
+
+    # run_corpus_chain at full width
+    n = BLOCK
+    chain = Chain(CHAIN, SR, CHANNELS, n)
+    clips = make_clicks(CHAIN_CORPUS_BATCH, CHANNELS, NUM_BLOCKS * n, device,
+                        seed=81)
+    t0 = time.perf_counter()
+    want = corpus.run_corpus_chain(chain, clips, metrics="blocks",
+                                   device=device)
+    torch.cuda.synchronize()
+    wall_one = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    got, per = shard_launches(
+        corpus, "run_corpus_chain", chain_step(),
+        lambda run: run(chain, clips, metrics="blocks", mesh=mesh))
+    torch.cuda.synchronize()
+    wall_mesh = time.perf_counter() - t0
+    same_tree("run_corpus_chain", got, want)
+    if per != [NUM_BLOCKS] * k or other_launches(chain_step()):
+        raise AssertionError(f"sharded chain corpus: launches per shard "
+                             f"{per}, {other_launches(chain_step())} other")
+    print(f"run_corpus_chain B={CHAIN_CORPUS_BATCH} over {k} shards: audio, "
+          f"every stage's metrics per block and the aggregates bit-equal to "
+          f"the unsharded run; chain-kernel launches per shard {per}; walls "
+          f"{wall_one:.3f} s unsharded, {wall_mesh:.3f} s sharded")
+    res["chain"] = {"launches_per_shard": per, "wall_one_s": wall_one,
+                    "wall_mesh_s": wall_mesh}
+    del want, got, clips
+
+    # run_corpus, the saturator's stage kernel
+    plug = Plugin("saturator", SR, CHANNELS, n)
+    params = plug.preset(PRESET)
+    clips = make_batch(MESH_CORPUS_BATCH, CHANNELS, NUM_BLOCKS * n, device,
+                       seed=83)
+    want = corpus.run_corpus(plug, params, clips, device=device)
+    reset_launches()
+    got, per = shard_launches(
+        corpus, "run_corpus", stage_steps()["saturator"],
+        lambda run: run(plug, params, clips, mesh=mesh))
+    same_tree("run_corpus", got, want)
+    if per != [NUM_BLOCKS] * k:
+        raise AssertionError(f"sharded saturator corpus: launches per shard "
+                             f"{per}")
+    print(f"run_corpus saturator B={MESH_CORPUS_BATCH} over {k} shards: "
+          f"bit-equal; stage-kernel launches per shard {per}")
+    res["saturator_launches_per_shard"] = per
+
+    # run_corpus_resumable
+    sub = clips[:MESH_RESUME_CLIPS, :, :4 * n]
+    with tempfile.TemporaryDirectory() as folder:
+        one = corpus.run_corpus_resumable(
+            plug, params, sub, f"{folder}/one.ckpt", macro_batch=MESH_MACRO,
+            device=device)
+        sharded = corpus.run_corpus_resumable(
+            plug, params, sub, f"{folder}/mesh.ckpt", macro_batch=MESH_MACRO,
+            mesh=mesh)
+    if not np.array_equal(one, sharded):
+        raise AssertionError("run_corpus_resumable: the sharded scores differ")
+    print(f"run_corpus_resumable {MESH_RESUME_CLIPS} clips, macro batches of "
+          f"{MESH_MACRO} over {k} shards: the same scores")
+    del want, got, clips
+
+    # StreamServer: tests/test_serve.py:278-307's script (three streams,
+    # a per-slot edit on the second, two ticks), on bench.py's chain (the
+    # kernel tick) and on JAX's test chain (the fused tick). The kernel
+    # tick is bit-equal to the solo server. The fused tick sums each
+    # block with PyTorch's CUDA reductions, whose order follows the
+    # tensor's shape: a pool of S/K slots sums as a solo server of S/K
+    # slots does, bit for bit, and within JAX's own tolerances for its
+    # sharded server (audio 2e-6, scores 1e-3) of the solo server of S.
+    x = make_clicks(1, CHANNELS, 2 * n, device, seed=85)[0].cpu().numpy()
+    serve_stages = [("punch", "Solar Snap"), ("saturator", "Amber Heat"),
+                    ("infer", None)]
+
+    def play(stages, stage, edit, slots, **kw):
+        srv = StreamServer(Chain(stages, SR, CHANNELS, n), slots, **kw)
+        sids = [srv.open_stream() for _ in range(3)]
+        srv.set_params(sids[1], stage, **edit)
+        rec = []
+        for j in range(2):
+            blk = x[:, j * n:(j + 1) * n]
+            for sid in sids:
+                srv.submit(sid, blk * (1.0 + 0.1 * sid))
+            _sids, audio, scores, pre = srv.tick_arrays()
+            rec.append((audio, scores, pre))
+        return rec
+
+    def equal(ra, rb):
+        return all(np.array_equal(a_, b_) for ta, tb in zip(ra, rb)
+                   for a_, b_ in zip(ta, tb))
+
+    sharded = play(CHAIN, "punch", {"punch": 0.3}, MESH_SLOTS, mesh=mesh)
+    solo = play(CHAIN, "punch", {"punch": 0.3}, MESH_SLOTS, device=device)
+    if not equal(sharded, solo):
+        raise AssertionError("StreamServer(mesh=) kernel tick: differs from "
+                             "the solo server")
+    print(f"StreamServer(mesh=) {MESH_SLOTS} slots over {k} pools, kernel "
+          f"tick: bit-equal to the solo server")
+    edit = ("saturator", {"drive": 13.5})
+    sharded = play(serve_stages, *edit, MESH_SLOTS, mesh=mesh)
+    pool = play(serve_stages, *edit, MESH_SLOTS // k, device=device)
+    solo = play(serve_stages, *edit, MESH_SLOTS, device=device)
+    d_audio = max(max_diff(torch.from_numpy(a_[0]), torch.from_numpy(b_[0]))
+                  for a_, b_ in zip(sharded, solo))
+    d_score = max(max_diff(torch.from_numpy(a_[1]), torch.from_numpy(b_[1]))
+                  for a_, b_ in zip(sharded, solo))
+    print(f"StreamServer(mesh=) {MESH_SLOTS} slots over {k} pools, fused "
+          f"tick: bit-equal to a solo server of {MESH_SLOTS // k} slots: "
+          f"{equal(sharded, pool)}; against the solo server of "
+          f"{MESH_SLOTS}: audio {d_audio:.3g}, scores {d_score:.3g}; a solo "
+          f"server of {MESH_SLOTS // k} against it: bit-equal "
+          f"{equal(pool, solo)}")
+    if not equal(sharded, pool) or d_audio > 2e-6 or d_score > 1e-3:
+        raise AssertionError("StreamServer(mesh=) fused tick: differs from "
+                             "the solo servers")
+    res["serve_fused_vs_solo"] = {"audio": d_audio, "score": d_score}
+
+    # the sequence-parallel scan
+    t = NUM_BLOCKS * n
+    g = torch.Generator(device=device).manual_seed(87)
+    a = 0.9 + 0.1 * torch.rand((64, t), generator=g, device=device)
+    x = torch.randn((64, t), generator=g, device=device)
+    init = torch.randn((64,), generator=g, device=device)
+    seq = make_mesh((k,), ("seq",), devices=devices)
+    y_sp = sequence_parallel_linear_scan(seq, a, x, init)
+    y_cpu = sequence_parallel_linear_scan(
+        make_mesh((k,), ("seq",), devices=["cpu"] * k), a.cpu(), x.cpu(),
+        init.cpu())
+    y_one = linear_scan_assoc(a, x, init)
+    sp_cpu = torch.equal(y_sp.cpu(), y_cpu)
+    d_one = max_diff(y_sp, y_one)
+    close = bool(torch.allclose(y_sp, y_one, rtol=1e-4, atol=1e-5))
+    print(f"sequence_parallel_linear_scan T={t} over {k} shards: bit-equal "
+          f"to the same split on the CPU: {sp_cpu}; against "
+          f"linear_scan_assoc on one device: max |diff| {d_one:.3g}, within "
+          f"JAX's rtol 1e-4 / atol 1e-5: {close}")
+    if not (sp_cpu and close):
+        raise AssertionError("sequence_parallel_linear_scan disagrees")
+    res["scan_vs_one_max_diff"] = d_one
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 8: {res['phase_s']:.1f} s")
+    print(json.dumps({"mesh": res}))
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's kernels run "
@@ -2464,8 +2861,10 @@ def main():
     device = torch.device("cuda", 0)
     phase_device()
     phase_build()
-    if sys.argv[1:] == ["--phase", "6"]:      # the host entry points alone
-        phase_host(device)
+    alone = {"6": phase_host, "7": phase_relaxed, "8": phase_mesh}
+    if len(sys.argv) == 3 and sys.argv[1] == "--phase" \
+            and sys.argv[2] in alone:                    # one phase alone
+        alone[sys.argv[2]](device)
         return 0
     plugin = Plugin("saturator", SR, CHANNELS, BLOCK)
     params = plugin.preset(PRESET)
@@ -2484,6 +2883,8 @@ def main():
     phase_chain(device)
     serve = phase_serve(device)
     phase_host(device)
+    phase_relaxed(device)
+    phase_mesh(device)
     ref = tex_timing[MATERIALS[REFERENCE_MATERIAL]]
     print(json.dumps({"kernels": [{
         "name": "saturator_stage",

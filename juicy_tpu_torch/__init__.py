@@ -5,8 +5,8 @@ module paths and function names, on float32 torch tensors, and runs its
 kernels as CUDA C++ written for Hopper (``csrc/``, built at first use by
 ``kernels/_build.py``). It imports neither JAX nor ``juicy_tpu``.
 
-Ported so far (ROADMAP.md lists the rest): the drift-pinned numerics and the
-LCG noise, the analyzer, ``Plugin`` and ``Chain`` with all seven processors
+The port is complete: it does all that the JAX package does. It has the
+drift-pinned numerics and the LCG noise, the analyzer, ``Plugin`` and ``Chain`` with all seven processors
 (texture's material static or one per clip), the punch, saturator, texture
 and motion stage kernels and ``run_corpus``, the chain kernel, the
 block-major chain executor and ``run_corpus_chain`` (with per-block
@@ -20,7 +20,12 @@ the program API of ``Plugin``, WAV and native I/O (``runtime/wav.py``,
 pipelined stream (``runtime/host_bridge.py``: a single stream steps through
 its plugin's stage kernel, the canonical chain through the chain kernel),
 the meter panel and web editor (``ui/``) and the CLI (``cli.py``,
-``python -m juicy_tpu_torch``). Every entry point runs on the CUDA card
+``python -m juicy_tpu_torch``). Then the relaxed tier
+(``runtime/relaxed.py``: ``relaxed_chain_stream`` over the associative
+scans of ``ops/scan_utils.py`` and ``ops/envelopes.py``) and device meshes
+(``parallel/mesh.py``; ``mesh=`` on ``run_corpus``, ``run_corpus_chain``,
+``run_corpus_resumable`` and ``StreamServer``, and the sequence-parallel
+scan of ``parallel/timeshard.py``). Every entry point runs on the CUDA card
 unless the caller passes another ``device`` (``runtime/device.py``);
 ``device="cpu"`` is the plain route.
 """
@@ -37,22 +42,25 @@ from juicy_tpu_torch.parallel.corpus import (corpus_metrics, run_corpus,
                                              run_corpus_chain,
                                              run_corpus_resumable)
 from juicy_tpu_torch.parallel.grouping import run_grouped
+from juicy_tpu_torch.parallel.mesh import Mesh, make_mesh
+from juicy_tpu_torch.parallel.timeshard import sequence_parallel_linear_scan
 from juicy_tpu_torch.runtime.host_bridge import (HostBridge, PipelinedStream,
                                                  StreamStep)
 from juicy_tpu_torch.runtime.plugin import Chain, Plugin
+from juicy_tpu_torch.runtime.relaxed import relaxed_chain_stream
 from juicy_tpu_torch.runtime.serve import StreamServer
 from juicy_tpu_torch.runtime.state import (load_plugin_state, load_state,
                                            save_plugin_state, save_state)
 from juicy_tpu_torch.runtime.wav import read_wav, write_wav
 
-__all__ = ["Chain", "HostBridge", "PipelinedStream", "Plugin",
+__all__ = ["Chain", "HostBridge", "Mesh", "PipelinedStream", "Plugin",
            "StreamServer", "StreamStep", "analyze", "analyze_fused",
            "analyzer_init", "corpus_metrics",
-           "get_processor", "load_plugin_state", "load_state",
+           "get_processor", "load_plugin_state", "load_state", "make_mesh",
            "motion_stage_step", "motion_stage_step_plain",
            "punch_stage_step", "punch_stage_step_plain", "read_wav",
-           "run_corpus", "run_corpus_chain", "run_corpus_resumable",
-           "run_grouped", "save_plugin_state", "save_state",
-           "saturator_stage_step", "saturator_stage_step_plain",
-           "saturator_step_fused",
+           "relaxed_chain_stream", "run_corpus", "run_corpus_chain",
+           "run_corpus_resumable", "run_grouped", "save_plugin_state",
+           "save_state", "saturator_stage_step", "saturator_stage_step_plain",
+           "saturator_step_fused", "sequence_parallel_linear_scan",
            "texture_stage_step", "texture_stage_step_plain", "write_wav"]

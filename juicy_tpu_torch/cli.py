@@ -404,11 +404,15 @@ def cmd_corpus(args):
     import os
     import time
     from juicy_tpu_torch.parallel.corpus import run_corpus_chain
+    from juicy_tpu_torch.parallel.mesh import make_mesh
     from juicy_tpu_torch.runtime.device import resolve_device
     from juicy_tpu_torch.runtime.plugin import Chain
     from juicy_tpu_torch.runtime.wav import read_wav, write_wav
 
-    device = resolve_device(args.device)
+    # no --device: every visible card, the clips split over them
+    mesh = make_mesh() if args.device is None else None
+    device = None if mesh is not None else resolve_device(args.device)
+    ndev = 1 if mesh is None else mesh.size
     os.makedirs(args.out_dir, exist_ok=True)
     stages = _parse_stages(args.stages)
     clips, srs = [], []
@@ -443,17 +447,28 @@ def cmd_corpus(args):
             done = int(ck.get("done", 0))
             print(f"resuming at clip {done}/{len(clips)}")
 
-    # one card: macro batches of --batch clips, the last one short (clips
-    # are independent)
-    macro = max(1, args.batch)
+    # macro batches of --batch clips rounded up to the device count, so
+    # that the split over the cards divides; the last batch is padded with
+    # silent clips to a multiple of the device count (clips are
+    # independent), and their results are dropped
+    macro = max(1, (args.batch + ndev - 1) // ndev) * ndev
     t0 = time.perf_counter()
     scores = []
     while done < len(clips):
         end = min(len(clips), done + macro)
+        chunk = corpus[done:end]
+        chunk_mats = None if mats is None else mats[done:end]
+        pad = -chunk.shape[0] % ndev
+        if pad:
+            chunk = np.concatenate([chunk, np.zeros(
+                (pad,) + chunk.shape[1:], np.float32)])
+            if chunk_mats is not None:
+                chunk_mats = np.concatenate(
+                    [chunk_mats, np.full(pad, chunk_mats[0])])
         out, ms, _agg = run_corpus_chain(
-            chain, torch.from_numpy(corpus[done:end]), metrics="final",
-            materials=None if mats is None else mats[done:end],
-            return_audio=not score_only, device=device)
+            chain, torch.from_numpy(chunk), metrics="final",
+            materials=chunk_mats, return_audio=not score_only,
+            device=device, mesh=mesh)
         if not score_only:
             out = out.cpu().numpy()
             for i in range(done, end):
@@ -461,7 +476,7 @@ def cmd_corpus(args):
                     args.out_dir, os.path.basename(args.inputs[i]))
                 write_wav(dest, out[i - done][..., :lengths[i]], sr)
         final = ms[-1]["score"].cpu().numpy()
-        scores.extend(float(v) for v in final)
+        scores.extend(float(v) for v in final[:end - done])
         done = end
         if args.checkpoint:
             with open(args.checkpoint, "w") as f:

@@ -3,9 +3,13 @@
 
 A corpus [B, C, T] streams block by block through one plugin, or through a
 ``Chain``, on the card (or on the device the caller names); the result is
-the audio, the metrics and their corpus mean/min/max. The JAX runner's mesh has
-no counterpart on one GPU, and the 1024-clip tile alignment does not apply:
-the kernels mask the ragged edge of the batch. A corpus with a texture
+the audio, the metrics and their corpus mean/min/max. With a mesh
+(parallel/mesh.py; by default every visible card when the caller names no
+device) the clips are split over its ``data`` axis: each device runs its
+shard on the single-device path, and the outputs are gathered on the
+mesh's first device, where the corpus aggregates are taken. One device
+runs the single-device path alone. The 1024-clip tile alignment does not
+apply: the kernels mask the ragged edge of the batch. A corpus with a texture
 material per clip is sorted by material into runs of 32 clips (the mixed
 kernels' CTAs) once, and put back in corpus order once. Automation
 curves give every block its own constants on either route.
@@ -19,7 +23,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from juicy_tpu_torch.runtime.device import resolve_device
+from juicy_tpu_torch.parallel.mesh import gather, make_mesh, shard_clips
+from juicy_tpu_torch.runtime.device import on_device, resolve_device
 from juicy_tpu_torch.runtime.plugin import (Plugin, automation_curves,
                                             params_at)
 
@@ -42,6 +47,28 @@ def _corpus_on(clips, device):
     return clips.to(resolve_device(device))
 
 
+def corpus_mesh(mesh=None, device=None):
+    """The mesh whose ``data`` axis a corpus runner splits its clips over:
+    `mesh`; with neither a mesh nor a device, every visible card (JAX's
+    ``mesh=None``: ``make_mesh()``); None for an explicit `device` alone."""
+    if mesh is not None and device is not None:
+        raise ValueError("pass a mesh or a device, not both")
+    if mesh is None and device is None:
+        mesh = make_mesh()
+    return mesh
+
+
+def _split_rows(tree, b: int, k: int):
+    """`k` copies of a dict of params whose [B]-leading leaves (one value
+    per clip) are split into the k shards' rows; other leaves are shared."""
+    def part(v, i):
+        if isinstance(v, (torch.Tensor, np.ndarray)) and v.ndim \
+                and v.shape[0] == b:
+            return v[i * (b // k):(i + 1) * (b // k)]
+        return v
+    return [{key: part(v, i) for key, v in tree.items()} for i in range(k)]
+
+
 def _stage_kernel_step(plugin: Plugin):
     """The plugin's full-stage kernel step, or None when it has none.
 
@@ -60,10 +87,14 @@ def _stage_kernel_step(plugin: Plugin):
 
 
 def run_corpus(plugin: Plugin, params, clips, use_kernel: str = "auto",
-               automation=None, device=None):
+               automation=None, device=None, mesh=None):
     """Process a [B, C, T] float32 corpus (a tensor or a numpy array) on
     `device`: the card when None, which must then exist; ``"cpu"`` runs the
-    plain PyTorch route.
+    plain PyTorch route. With a `mesh` (parallel/mesh.py), or with neither
+    a mesh nor a device and more than one visible card, the clips are split
+    over the mesh's ``data`` axis (B must divide by it: ValueError), each
+    shard runs as below on its device, and the results are gathered on the
+    first.
 
     `use_kernel`: "auto" runs the plugin's full-stage kernel step when it has
     one (punch, the saturator, texture, motion), which launches the CUDA
@@ -91,6 +122,20 @@ def run_corpus(plugin: Plugin, params, clips, use_kernel: str = "auto",
     if use_kernel not in ("auto", "never", "always"):
         raise ValueError(f"use_kernel must be auto, never or always; got "
                          f"{use_kernel!r}")
+    mesh = corpus_mesh(mesh, device)
+    if mesh is not None:
+        devices = mesh.axis_devices("data")
+        if len(devices) > 1:
+            rows = _split_rows(params, clips.shape[0], len(devices))
+            res = []
+            for chunk, p, dev in zip(shard_clips(mesh, clips), rows,
+                                     devices):
+                with on_device(dev):
+                    res.append(run_corpus(plugin, p, chunk, use_kernel,
+                                          automation, device=dev))
+            last = {k: gather([r[1][k] for r in res]) for k in res[0][1]}
+            return gather([r[0] for r in res]), last, corpus_metrics(last)
+        device = devices[0]
     clips = _corpus_on(clips, device)
     b = clips.shape[0]
     kstep = None if use_kernel == "never" else _stage_kernel_step(plugin)
@@ -149,16 +194,18 @@ def run_corpus_resumable(plugin: Plugin, params, clips, checkpoint_path: str,
     ``{"done": int32}`` as its params, the per-clip scores
     ``{"scores": float32 [B]}`` as its state and ``total`` in its meta, as
     JAX's does: a job that either package interrupted resumes in the
-    other. Clips are independent, so the last batch is not padded.
+    other. A `mesh` (or, with neither a mesh nor a device, every visible
+    card) splits each macro batch over its ``data`` axis through
+    ``run_corpus``; a batch that does not divide is padded with silent
+    clips, whose scores are dropped (clips are independent: the scores are
+    the unsharded run's). Without a split the last batch is not padded.
     Returns the per-clip final-block scores, numpy float32 [B]."""
     import os
 
     from juicy_tpu_torch.runtime.state import load_state, save_state
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_corpus_resumable(mesh=) is not ported: the corpus runs on "
-            "one card (ROADMAP.md, Queue 1 item 9: more than one GPU)")
+    mesh = corpus_mesh(mesh, device)
+    k = 1 if mesh is None else len(mesh.axis_devices("data"))
     b = clips.shape[0]
     scores = np.zeros((b,), np.float32)
     cursor = {"done": torch.tensor(0, dtype=torch.int32)}
@@ -170,9 +217,13 @@ def run_corpus_resumable(plugin: Plugin, params, clips, checkpoint_path: str,
     since_save = 0
     while done < b:
         end = min(b, done + macro_batch)
-        _out, last, _agg = run_corpus(plugin, params, clips[done:end],
-                                      device=device)
-        scores[done:end] = last["score"].cpu().numpy()
+        chunk = torch.as_tensor(clips[done:end])
+        pad = -chunk.shape[0] % k
+        if pad:
+            chunk = torch.cat([chunk, chunk.new_zeros((pad, *chunk.shape[1:]))])
+        _out, last, _agg = run_corpus(plugin, params, chunk, device=device,
+                                      mesh=mesh)
+        scores[done:end] = last["score"].cpu().numpy()[:end - done]
         done = end
         since_save += 1
         if since_save >= save_every or done >= b:
@@ -225,10 +276,16 @@ def _tex_materials(materials) -> torch.Tensor:
 
 def run_corpus_chain(chain, clips, metrics: str = "final",
                      use_kernel: str = "auto", automation=None,
-                     materials=None, return_audio: bool = True, device=None):
+                     materials=None, return_audio: bool = True, device=None,
+                     mesh=None):
     """Full-chain corpus scoring: a [B, C, T] float32 corpus (a tensor or a
     numpy array) through `chain` on `device` (the card when None, which must
-    then exist; ``"cpu"`` runs the plain PyTorch routes).
+    then exist; ``"cpu"`` runs the plain PyTorch routes). With a `mesh`, or
+    with neither a mesh nor a device and more than one visible card, the
+    clips (and `materials`) are split over the mesh's ``data`` axis (B must
+    divide by it: ValueError, as JAX's batch sharding raises), each shard
+    runs as below on its device (one chain-kernel launch per block per
+    device), and the audio and metrics are gathered on the first device.
 
     `use_kernel`: "auto" takes ``chain_kernel_stream`` when
     ``supports_chain_kernel(chain)`` holds (the canonical seven-stage
@@ -261,6 +318,12 @@ def run_corpus_chain(chain, clips, metrics: str = "final",
     if use_kernel not in ("auto", "never", "always"):
         raise ValueError(f"use_kernel must be auto, never or always; got "
                          f"{use_kernel!r}")
+    mesh = corpus_mesh(mesh, device)
+    if mesh is not None:
+        if len(mesh.axis_devices("data")) > 1:
+            return _chain_sharded(chain, clips, mesh, metrics, use_kernel,
+                                  automation, materials, return_audio)
+        device = mesh.axis_devices("data")[0]
     clips = _corpus_on(clips, device)
     if materials is not None:
         values = _tex_materials(materials)
@@ -281,3 +344,32 @@ def run_corpus_chain(chain, clips, metrics: str = "final",
                               automation=automation)
     agg = None if ms is None else corpus_metrics(ms[-1])
     return out, ms, agg
+
+
+def _chain_sharded(chain, clips, mesh, metrics, use_kernel, automation,
+                   materials, return_audio):
+    """run_corpus_chain over the shards of `mesh`'s data axis, gathered."""
+    devices = mesh.axis_devices("data")
+    parts = shard_clips(mesh, clips)
+    mats = None
+    if materials is not None:
+        values = _tex_materials(materials)
+        if values.shape[0] != clips.shape[0]:
+            raise ValueError(f"materials must have one entry per clip: "
+                             f"{values.shape[0]} vs batch {clips.shape[0]}")
+        mats = torch.chunk(values, len(devices))
+    res = []
+    for i, (chunk, dev) in enumerate(zip(parts, devices)):
+        with on_device(dev):
+            res.append(run_corpus_chain(
+                chain, chunk, metrics=metrics, use_kernel=use_kernel,
+                automation=automation,
+                materials=None if mats is None else mats[i],
+                return_audio=return_audio, device=dev))
+    out = gather([r[0] for r in res]) if return_audio else None
+    if res[0][1] is None:
+        return out, None, None
+    dim = 1 if metrics == "blocks" else 0
+    ms = [{k: gather([r[1][s][k] for r in res], dim) for k in stage}
+          for s, stage in enumerate(res[0][1])]
+    return out, ms, corpus_metrics(ms[-1])

@@ -8,6 +8,8 @@ explicit way to get the plain PyTorch route (the CPU tests pass it).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -21,3 +23,11 @@ def resolve_device(device=None) -> torch.device:
             "asks for another device; pass device=\"cpu\" for the plain "
             "PyTorch route")
     return torch.device("cuda")
+
+
+def on_device(device: torch.device):
+    """The context that makes `device` current, so that the kernels a
+    wrapper launches for tensors on it run there (a no-op off CUDA)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()

@@ -33,8 +33,12 @@ slots' states between CTAs on edits and opens. That is not done here.
 
 The pool lives on `device`: None is the card (and raises without one),
 ``"cpu"`` the plain routes. The assembly buffer stays on the host; a CUDA
-pool copies it through pinned memory. Not ported: ``mesh=`` (one pool on
-one card).
+pool copies it through pinned memory. With a `mesh` (parallel/mesh.py) of
+K devices on its ``data`` axis the slots are split into K equal parts
+(``max_streams`` must divide by K, ValueError otherwise, as JAX's server
+raises): each part's state, kernel chain and constant rows live on its
+device and tick there as one pool does, and the audio and scores are
+gathered on the mesh's first device. A one-device mesh is one pool.
 """
 
 from __future__ import annotations
@@ -46,10 +50,127 @@ import torch
 
 from juicy_tpu_torch.kernels import chain_kernel as ck
 from juicy_tpu_torch.ops.precise import F32
+from juicy_tpu_torch.parallel.mesh import gather
 from juicy_tpu_torch.runtime.chain_fused import fused_chain_step
-from juicy_tpu_torch.runtime.device import resolve_device
+from juicy_tpu_torch.runtime.device import on_device, resolve_device
 
 _I16_SCALE = 32768.0
+
+
+class _Pool:
+    """One device's slots [lo, hi) of a server: their state (in Chain form,
+    or on a CUDA kernel pool the analyzers in Chain form and every DSP
+    state in a ``KernelChain``), the kernel tick's constant rows, and the
+    step over them."""
+
+    def __init__(self, srv, device, lo: int, hi: int):
+        self.srv = srv
+        self.lo, self.hi = lo, hi
+        s = hi - lo
+        self.device = device
+        self.cuda = device.type == "cuda"
+        if self.cuda and device.index is None:      # the tensors' own
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        chain = srv.chain
+        self.fresh = chain.init_state((1,), self.device)
+        states = chain.init_state((s,), self.device)
+        self.kc = None
+        if srv._kernel_tick and self.cuda:
+            with on_device(self.device):
+                self.kc = ck.KernelChain(chain, states, s, self.device)
+                self.fresh_kc = ck.KernelChain(chain, self.fresh, 1,
+                                               self.device)
+            states = [{"analyzer": st["analyzer"]} for st in states]
+        self.states = states
+        self.rows = None                # ParamRows, edited in place once built
+
+    def reset_slot(self, sid: int) -> None:
+        """Slot `sid`'s column of every state leaf from a fresh state."""
+        sid -= self.lo
+        for st, fresh in zip(self.states, self.fresh):
+            for group, leaves in st.items():
+                for key, v in leaves.items():
+                    if not v.is_contiguous():   # a view: take a copy once
+                        leaves[key] = v = v.contiguous()
+                    v[sid] = fresh[group][key][0]
+        if self.kc is not None:
+            self.kc.write_clip(sid, self.fresh_kc)
+
+    def write_row(self, sid: int, values) -> None:
+        if self.rows is not None:
+            self.rows.set_row(sid - self.lo, values)
+
+    def param_rows(self):
+        """The kernel tick's per-slot rows, built at their first use (the
+        warmup's) and kept up to date edit by edit."""
+        if self.rows is None:
+            self.rows = ck.ParamRows(
+                self.srv.chain,
+                [{k: torch.from_numpy(v[self.lo:self.hi])
+                  for k, v in rows.items()} for rows in self.srv._params],
+                self.hi - self.lo)
+        return self.rows
+
+    def fused_params(self):
+        """The fused tick's params: [S] rows for the edited knobs, the
+        chain's shared values for the others."""
+        srv = self.srv
+        edited = set().union(*srv._custom_slots.values())
+        params = [dict(p) for p in srv.chain.params]
+        for i, k in edited:
+            params[i][k] = torch.from_numpy(
+                srv._params[i][k][self.lo:self.hi]).to(self.device)
+        return params
+
+    def step(self, states, kc, x, custom: bool):
+        """One step over the pool from `states` (and `kc`): (out, states',
+        per-stage metrics). Writes kc's state in place."""
+        srv = self.srv
+        chain = srv.chain
+        with on_device(self.device):
+            if kc is not None:
+                an = [st["analyzer"] for st in states]
+                out, an, ms = ck.kernel_chain_tick(
+                    kc, chain, an, x, self.param_rows() if custom else None,
+                    return_audio=srv.audio_out)
+                return out, [{"analyzer": a} for a in an], ms
+            if srv._kernel_tick:
+                return ck.chain_kernel_step(
+                    chain, states, x,
+                    params_rows=self.param_rows() if custom else None)
+            return fused_chain_step(chain, states, x, metrics=srv.metrics,
+                                    params=self.fused_params() if custom
+                                    else None)
+
+    def blocks_in(self, blocks: np.ndarray) -> torch.Tensor:
+        """The pool's rows of a host buffer on its device (a snapshot:
+        later submits do not reach it), decoded to float32 on an i16
+        wire."""
+        blocks = blocks[self.lo:self.hi]
+        if self.cuda:
+            pinned = torch.empty(
+                blocks.shape, pin_memory=True,
+                dtype=torch.int16 if self.srv.wire == "i16" else F32)
+            pinned.numpy()[...] = blocks
+            x = pinned.to(self.device, non_blocking=True)
+        else:
+            x = torch.from_numpy(blocks.copy())
+        if self.srv.wire == "i16":
+            x = x.to(F32) * (1.0 / _I16_SCALE)
+        return x
+
+    def warmup(self, rows: bool) -> None:
+        x = self.blocks_in(np.zeros_like(self.srv._assembly))
+        for custom in (False, True) if rows else (False,):
+            kc = None if self.kc is None else self.kc.clone()
+            self.step(self.states, kc, x, custom)
+        if self.cuda:
+            torch.cuda.synchronize(self.device)
+
+    def dispatch(self, custom: bool):
+        out, self.states, metrics = self.step(
+            self.states, self.kc, self.blocks_in(self.srv._assembly), custom)
+        return out, metrics
 
 
 class StreamServer:
@@ -65,11 +186,9 @@ class StreamServer:
         `wire`: "f32" moves float32 blocks both ways; "i16" moves 16-bit PCM
         (scale 32768), decoded and encoded on the pool's device, the
         processing float32. `audio_out=False` is the metering rail: ticks
-        return scores only and the audio never leaves the device."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "StreamServer(mesh=) is not ported: one pool serves on one "
-                "card (ROADMAP.md, Queue 1 item 9: more than one GPU)")
+        return scores only and the audio never leaves the device. `mesh`
+        splits the slots over its ``data`` axis (``max_streams`` must
+        divide by it); it replaces `device`."""
         if metrics not in ("blocks", "final", "none"):
             raise ValueError(f"metrics must be blocks, final or none; got "
                              f"{metrics!r}")
@@ -81,36 +200,28 @@ class StreamServer:
                              "(scores are the only output)")
         if wire not in ("f32", "i16"):
             raise ValueError(f"wire must be 'f32' or 'i16', got {wire!r}")
+        if mesh is not None and device is not None:
+            raise ValueError("pass a mesh or a device, not both")
+        devices = ([resolve_device(device)] if mesh is None
+                   else mesh.axis_devices("data"))
         self.chain = chain
         self.max_streams = s = int(max_streams)
+        if s % len(devices):
+            raise ValueError(f"max_streams {s} must be a multiple of the "
+                             f"mesh's {len(devices)} devices")
         self.metrics = metrics
         self.stage_metrics = stage_metrics
         self.audio_out = bool(audio_out)
         self.wire = wire
         self._wire_np = np.int16 if wire == "i16" else np.float32
-        self.device = resolve_device(device)
-        self._cuda = self.device.type == "cuda"
-        if self._cuda and self.device.index is None:    # the tensors' own
-            self.device = torch.device("cuda", torch.cuda.current_device())
         self._free = list(range(s))[::-1]
         self._active: Dict[int, bool] = {}
 
-        # the pool's state: Chain form, or on a CUDA kernel pool the
-        # analyzers in Chain form and every DSP state in the KernelChain
         # per-stream materials (a traced material) tick on the executor
         traced = any(plug.defn.name == "texture" and "material" in params
                      for plug, params in zip(chain.plugins, chain.params))
         self._kernel_tick = metrics == "blocks" and not traced and \
             ck.supports_chain_kernel(chain)
-        self._fresh = chain.init_state((1,), self.device)
-        states = chain.init_state((s,), self.device)
-        self._kc = None
-        if self._kernel_tick and self._cuda:
-            self._kc = ck.KernelChain(chain, states, s, self.device)
-            self._fresh_kc = ck.KernelChain(chain, self._fresh, 1,
-                                            self.device)
-            states = [{"analyzer": st["analyzer"]} for st in states]
-        self._states = states
 
         # per-slot parameter rows on the host, seeded from the chain's
         self._default_rows = [
@@ -121,7 +232,6 @@ class StreamServer:
         # slots whose rows differ from the defaults -> the (stage, key)
         # pairs they edited; while empty, ticks use the chain's shared row
         self._custom_slots: Dict[int, set] = {}
-        self._rows = None               # ParamRows, edited in place once built
 
         # the persistent slot-major assembly buffer: submits write into it
         self._assembly = np.zeros((s, chain.channels, chain.block_size),
@@ -129,6 +239,13 @@ class StreamServer:
         self._assembled_sids = np.empty(0, np.int64)
         self._staged: set = set()       # sids written since the last tick
         self._inflight: list = []       # tick_arrays_async queue
+
+        # the pools: one per device, each a contiguous range of slots
+        per = s // len(devices)
+        self._pools = [_Pool(self, dev, i * per, (i + 1) * per)
+                       for i, dev in enumerate(devices)]
+        self.device = self._pools[0].device
+        self._cuda = self._pools[0].cuda
 
     # -- stream lifecycle --------------------------------------------------
 
@@ -153,16 +270,12 @@ class StreamServer:
         self._reset_params(sid)
         self._free.append(sid)
 
+    def _pool(self, sid: int) -> _Pool:
+        return self._pools[sid // (self.max_streams // len(self._pools))]
+
     def _reset_slot(self, sid: int) -> None:
         """Slot `sid`'s column of every state leaf from a fresh state."""
-        for st, fresh in zip(self._states, self._fresh):
-            for group, leaves in st.items():
-                for key, v in leaves.items():
-                    if not v.is_contiguous():   # a view: take a copy once
-                        leaves[key] = v = v.contiguous()
-                    v[sid] = fresh[group][key][0]
-        if self._kc is not None:
-            self._kc.write_clip(sid, self._fresh_kc)
+        self._pool(sid).reset_slot(sid)
 
     def _reset_params(self, sid: int) -> None:
         edited = self._custom_slots.pop(sid, None)
@@ -218,66 +331,12 @@ class StreamServer:
 
     def _write_row(self, sid: int, values) -> None:
         """Slot `sid`'s new values (one dict per stage) into the host rows
-        and, once it is built, the kernel tick's constant table: one row
+        and, once they are built, its pool's constant table: one row
         worked out and written in place, whatever the pool holds."""
-        if self._rows is not None:
-            self._rows.set_row(sid, values)
+        self._pool(sid).write_row(sid, values)
         for i, upd in enumerate(values):
             for key, v in upd.items():
                 self._params[i][key][sid] = v
-
-    def _param_rows(self):
-        """The kernel tick's per-slot rows, built at their first use (the
-        warmup's) and kept up to date edit by edit."""
-        if self._rows is None:
-            self._rows = ck.ParamRows(
-                self.chain, [{k: torch.from_numpy(v) for k, v in rows.items()}
-                             for rows in self._params], self.max_streams)
-        return self._rows
-
-    def _fused_params(self):
-        """The fused tick's params: [S] rows for the edited knobs, the
-        chain's shared values for the others."""
-        edited = set().union(*self._custom_slots.values())
-        params = [dict(p) for p in self.chain.params]
-        for i, k in edited:
-            params[i][k] = torch.from_numpy(self._params[i][k]).to(self.device)
-        return params
-
-    # -- the serving loop --------------------------------------------------
-
-    def _step(self, states, kc, x, custom: bool):
-        """One step over the pool from `states` (and `kc`): (out, states',
-        per-stage metrics). Writes kc's state in place."""
-        chain = self.chain
-        if kc is not None:
-            an = [st["analyzer"] for st in states]
-            out, an, ms = ck.kernel_chain_tick(
-                kc, chain, an, x, self._param_rows() if custom else None,
-                return_audio=self.audio_out)
-            return out, [{"analyzer": a} for a in an], ms
-        if self._kernel_tick:
-            return ck.chain_kernel_step(
-                chain, states, x,
-                params_rows=self._param_rows() if custom else None)
-        return fused_chain_step(chain, states, x, metrics=self.metrics,
-                                params=self._fused_params() if custom
-                                else None)
-
-    def _blocks_in(self, blocks: np.ndarray) -> torch.Tensor:
-        """A host pool buffer on the pool's device (a snapshot: later
-        submits do not reach it), decoded to float32 on an i16 wire."""
-        if self._cuda:
-            pinned = torch.empty(
-                blocks.shape, pin_memory=True,
-                dtype=torch.int16 if self.wire == "i16" else F32)
-            pinned.numpy()[...] = blocks
-            x = pinned.to(self.device, non_blocking=True)
-        else:
-            x = torch.from_numpy(blocks.copy())
-        if self.wire == "i16":
-            x = x.to(F32) * (1.0 / _I16_SCALE)
-        return x
 
     def _audio_out(self, out):
         if not self.audio_out or out is None:
@@ -292,12 +351,8 @@ class StreamServer:
         of each route this pool can take (the shared params, and with
         `rows` the per-slot rows) over zeros on a copy of the state: slot
         states do not advance."""
-        x = self._blocks_in(np.zeros_like(self._assembly))
-        for custom in (False, True) if rows else (False,):
-            kc = None if self._kc is None else self._kc.clone()
-            self._step(self._states, kc, x, custom)
-        if self._cuda:
-            torch.cuda.synchronize(self.device)
+        for pool in self._pools:
+            pool.warmup(rows)
 
     def _to_wire(self, a: np.ndarray) -> np.ndarray:
         """A host block in the pool's wire type: on an i16 wire int16 passes
@@ -348,11 +403,17 @@ class StreamServer:
 
     def _dispatch(self):
         """One step over the assembled pool, without waiting for it. Slot
-        states advance here. Returns (out on the device or None, per-stage
-        metrics)."""
-        x = self._blocks_in(self._assembly)
-        out, self._states, metrics = self._step(
-            self._states, self._kc, x, bool(self._custom_slots))
+        states advance here. Returns (out on the first pool's device or
+        None, per-stage metrics)."""
+        custom = bool(self._custom_slots)
+        if len(self._pools) == 1:
+            out, metrics = self._pools[0].dispatch(custom)
+        else:
+            res = [pool.dispatch(custom) for pool in self._pools]
+            out = None if res[0][0] is None else gather([r[0] for r in res])
+            metrics = [None if m is None else
+                       {k: gather([r[1][i][k] for r in res]) for k in m}
+                       for i, m in enumerate(res[0][1])]
         return self._audio_out(out), metrics
 
     def tick_arrays(self):

@@ -827,7 +827,7 @@ def test_stream_server_on_card(cuda_device):
     fresh = ck.ParamRows(chain, [{k: torch.from_numpy(v) for k, v in p.items()}
                                  for p in servers["sync"]._params], s)
     for srv in servers.values():
-        assert torch.equal(srv._param_rows().table(srv.device).cpu(),
+        assert torch.equal(srv._pools[0].param_rows().table(srv.device).cpu(),
                            fresh.table("cpu"))
     sids = np.arange(s - 2)
     states = chain.init_state((s,), cuda_device)
@@ -850,7 +850,7 @@ def test_stream_server_on_card(cuda_device):
         x = torch.zeros((s, 2, N), device=cuda_device)
         x[:s - 2] = torch.from_numpy(blk).to(cuda_device)
         out_p, states, m_p = ck.chain_kernel_step_plain(
-            chain, states, x, params_rows=servers["sync"]._param_rows())
+            chain, states, x, params_rows=servers["sync"]._pools[0].param_rows())
         assert np.array_equal(got[1], out_p[:s - 2].cpu().numpy())
         assert np.array_equal(got[2], m_p[-1]["score"][:s - 2].cpu().numpy())
         i16 = servers["i16"].tick_arrays()
@@ -1183,3 +1183,137 @@ def test_cli_corpus_on_card(cuda_device, tmp_path):
     for i, p in enumerate(paths):
         got, _ = read_wav(str(tmp_path / "out" / os.path.basename(p)))
         np.testing.assert_array_equal(got, want[i].cpu().numpy())
+
+
+# ---------------------------------------------------------------------------
+# The relaxed tier and device meshes on the card (no kernel of their own:
+# PyTorch operations on CUDA tensors, held to the same calls on the CPU).
+# ---------------------------------------------------------------------------
+
+def _scan_case(seed, n):
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.5, 1.0, (64, n)).astype(np.float32)
+    b = rng.standard_normal((64, n)).astype(np.float32)
+    init = rng.standard_normal(64).astype(np.float32)
+    return [torch.from_numpy(v) for v in (a, b, init)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 7, 512, 48128])
+def test_associative_scans_on_card_match_cpu(n, cuda_device):
+    """The affine and (min, affine) scans, forward and reversed: each
+    elementwise operation in the same order on both devices, so bit-equal."""
+    from juicy_tpu_torch.ops import scan_utils as ts
+    from juicy_tpu_torch.runtime import relaxed as trx
+
+    a, b, init = _scan_case(n, n)
+    for reverse in (False, True):
+        want = ts.linear_scan_assoc(a, b, init, reverse=reverse)
+        got = ts.linear_scan_assoc(a.to(cuda_device), b.to(cuda_device),
+                                   init.to(cuda_device), reverse=reverse)
+        assert torch.equal(got.cpu(), want)
+    over = (b > 1.0).T
+    caps = torch.where(over, 0.5, 1e9)
+    coeffs = torch.where(over, 1.0, 0.9972)
+    offsets = torch.where(over, 0.0, 0.0028)
+    want = trx.min_affine_scan(caps, coeffs, offsets, init.abs())
+    got = trx.min_affine_scan(*(v.to(cuda_device) for v in
+                                (caps, coeffs, offsets, init.abs())))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_linear_matrix_scan_on_card_matches_cpu(cuda_device):
+    """2x2 and 4x4 maps over a block: <= -130 dBFS from the CPU."""
+    from juicy_tpu_torch.ops import scan_utils as ts
+
+    rng = np.random.default_rng(4)
+    for d in (2, 4):
+        mats = torch.from_numpy(
+            (np.eye(d) * 0.98 + 0.02 * rng.standard_normal((512, 16, d, d)))
+            .astype(np.float32))
+        vecs = torch.from_numpy(rng.standard_normal((512, 16, d))
+                                .astype(np.float32))
+        init = torch.zeros(16, d)
+        want = ts.linear_matrix_scan(mats, vecs, init)
+        got = ts.linear_matrix_scan(mats.to(cuda_device),
+                                    vecs.to(cuda_device),
+                                    init.to(cuda_device)).cpu()
+        diff = float((got.double() - want.double()).abs().max())
+        assert diff == 0 or 20 * np.log10(diff) <= -130.0, diff
+
+
+@pytest.mark.cuda
+def test_relaxed_chain_on_card_matches_cpu(cuda_device):
+    """relaxed_chain_stream at B = 16, two blocks of 512, on the card
+    against the CPU (chip_smoke.py phase 7's bars): audio <= -110 dBFS,
+    metrics within 1e-5 of max(1, |value|), every analyzer's cooldown and
+    motion's rng equal."""
+    from juicy_tpu_torch.runtime.plugin import Chain
+    from juicy_tpu_torch.runtime.relaxed import relaxed_chain_stream
+
+    chain = Chain([("punch", "Solar Snap"), ("saturator", "Amber Heat"),
+                   ("texture", None), ("motion", None),
+                   ("width", "Prism Arc"), ("cohere", None),
+                   ("infer", "Reference Lens")], SR, 2, 512)
+    clips = _clips(71, 2, 2, "cpu", batch=16, n=512)
+    out_g, st_g, ms_g = relaxed_chain_stream(
+        chain, chain.init_state((16,), cuda_device), clips.to(cuda_device))
+    out_c, st_c, ms_c = relaxed_chain_stream(
+        chain, chain.init_state((16,), "cpu"), clips, device="cpu")
+    diff = float((out_g.cpu().double() - out_c.double()).abs().max())
+    assert diff == 0 or 20 * np.log10(diff) <= -110.0, diff
+    for mg, mc in zip(ms_g, ms_c):
+        for key in mc:
+            rel = (mg[key].cpu().double() - mc[key].double()).abs() / \
+                mc[key].double().abs().clamp(min=1.0)
+            assert float(rel.max()) <= 1e-5, key
+    for sg, sc in zip(st_g, st_c):
+        assert torch.equal(sg["analyzer"]["onset_cooldown"].cpu(),
+                           sc["analyzer"]["onset_cooldown"])
+    assert torch.equal(st_g[3]["dsp"]["rng"].cpu(), st_c[3]["dsp"]["rng"])
+
+
+@pytest.mark.cuda
+def test_mesh_on_one_card_matches_unsharded(cuda_device):
+    """A [cuda:0, cuda:0] mesh (the split and the gather on one card)
+    through run_corpus_chain (one chain-kernel launch per block per shard)
+    and a StreamServer on the kernel tick with a per-slot edit: bit-equal
+    to no mesh."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.parallel.corpus import run_corpus_chain
+    from juicy_tpu_torch.parallel.mesh import make_mesh
+    from juicy_tpu_torch.runtime.plugin import Chain
+    from juicy_tpu_torch.runtime.serve import StreamServer
+
+    mesh = make_mesh(devices=[cuda_device, cuda_device])
+    stages = [("punch", "Solar Snap"), ("saturator", "Amber Heat"),
+              ("texture", None), ("motion", None), ("width", "Prism Arc"),
+              ("cohere", None), ("infer", "Reference Lens")]
+    chain = Chain(stages, SR, 2, N)
+    clips = _clips(72, 2, 3, cuda_device, batch=96)
+    want = run_corpus_chain(chain, clips, metrics="blocks",
+                            device=cuda_device)
+    before = ck.chain_kernel_step.launches
+    got = run_corpus_chain(chain, clips, metrics="blocks", mesh=mesh)
+    assert ck.chain_kernel_step.launches - before == 2 * 3
+    assert torch.equal(got[0], want[0])
+    for mg, mw in zip(got[1], want[1]):
+        for key in mw:
+            assert torch.equal(mg[key], mw[key]), key
+
+    def play(server):
+        sids = [server.open_stream() for _ in range(64)]
+        server.set_params(sids[40], "punch", punch=0.3)
+        res = []
+        for k in range(3):
+            server.submit_many(sids, clips[:64, :, k * N:(k + 1) * N].cpu()
+                               .numpy())
+            res.append(server.tick_arrays())
+        return res
+
+    solo = play(StreamServer(chain, 64, device=cuda_device))
+    sharded = play(StreamServer(chain, 64, mesh=mesh))
+    for rs, ro in zip(sharded, solo):
+        for vs, vo in zip(rs, ro):
+            np.testing.assert_array_equal(vs, vo)

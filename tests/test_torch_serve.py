@@ -27,8 +27,9 @@ Each test also makes the checks of its JAX counterpart on the port alone,
 and the port's own: ``chain_kernel_step(params_rows=)`` with every row equal
 is the shared step bit for bit, each per-slot setting gives what a chain of
 that setting gives alone, the per-row delay checks raise, ``mesh=`` raises
-NotImplementedError naming its ROADMAP item, and a traced material takes
-the block-major executor. The
+ValueError beside a device or for a slot count that does not divide (the
+sharded server itself: tests/test_torch_mesh.py), and a traced material
+takes the block-major executor. The
 CUDA pool is held to the CPU pool on the card in tests/test_torch_cuda.py.
 """
 
@@ -470,7 +471,7 @@ def test_torch_stream_server_chain_kernel_tick_vs_jax(jax_ref, monkeypatch):
     monkeypatch.setattr(ck, "chain_kernel_step", spy)
     before = step.launches
     srv, _rec, _sids, _h = run_case("chain7", jax_ref)
-    assert srv._kernel_tick and srv._kc is None
+    assert srv._kernel_tick and srv._pools[0].kc is None
     assert step.launches == before
     assert routes == [5, 5, None]        # four edited slots and the default
     assert not srv._custom_slots
@@ -581,7 +582,7 @@ def test_torch_param_rows_edited_in_place():
 
     srv = StreamServer(chain, 4, device="cpu")
     srv.warmup()
-    rows = srv._rows
+    rows = srv._pools[0].rows
     sids = [srv.open_stream() for _ in range(3)]
     srv.set_params(sids[0], "punch", punch=0.3, clip=0.4)
     srv.set_params(sids[2], "width", haasMs=30.0)
@@ -590,7 +591,7 @@ def test_torch_param_rows_edited_in_place():
     assert srv.get_params(sids[1], "infer")["trim"] == \
         float(chain.params[6]["trim"])
     srv.close_stream(sids[0])
-    assert srv._rows is rows
+    assert srv._pools[0].rows is rows
     _assert_rows_equal(rows, ck.ParamRows(
         chain, [{k: torch.from_numpy(v) for k, v in p.items()}
                 for p in srv._params], 4))
@@ -598,13 +599,18 @@ def test_torch_param_rows_edited_in_place():
 
 
 def test_torch_stream_server_not_ported_raise():
-    """mesh= (more than one GPU) names its ROADMAP item; a traced texture
-    material (per-stream materials, tests/test_torch_materials.py) is
-    served on the block-major executor; the pool runs on the card unless
-    asked for the CPU."""
-    with pytest.raises(NotImplementedError, match="item 9"):
-        StreamServer(Chain(STAGES, SR, 2, BLOCK), 2, mesh=object(),
+    """mesh= takes the place of device= and must divide the slots, as
+    JAX's does (ValueError); a traced texture material (per-stream
+    materials, tests/test_torch_materials.py) is served on the block-major
+    executor; the pool runs on the card unless asked for the CPU."""
+    from juicy_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="not both"):
+        StreamServer(Chain(STAGES, SR, 2, BLOCK), 2, mesh=mesh,
                      device="cpu")
+    with pytest.raises(ValueError, match="multiple"):
+        StreamServer(Chain(STAGES, SR, 2, BLOCK), 3, mesh=mesh)
     chain = Chain([("punch", None), ("texture", None), ("infer", None)],
                   SR, 2, BLOCK)
     chain.params[1]["material"] = torch.tensor(0.0)

@@ -294,8 +294,13 @@ def test_torch_resumable_corpus(name, jax_ref, tmp_path):
 
 
 def test_torch_resumable_mesh_raises():
+    """A mesh takes the place of a device: both at once raise (the sharded
+    resumable corpus itself: tests/test_torch_mesh.py)."""
+    from juicy_tpu_torch.parallel.mesh import make_mesh
+
     plug = TPlugin("infer", SR, 2, N)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(ValueError, match="not both"):
         run_corpus_resumable(plug, plug.default_params(),
                              np.zeros((2, 2, N), np.float32),
-                             os.devnull, mesh=object(), device="cpu")
+                             os.devnull, mesh=make_mesh(devices=["cpu"] * 2),
+                             device="cpu")

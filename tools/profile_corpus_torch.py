@@ -4,6 +4,7 @@
     python3 tools/profile_corpus_torch.py --plugin chain [--mixed]
     python3 tools/profile_corpus_torch.py --plugin texture --mixed
     python3 tools/profile_corpus_torch.py --plugin serve
+    python3 tools/profile_corpus_torch.py --plugin relaxed
 
 Runs ``juicy_tpu_torch.parallel.corpus.run_corpus`` at chip_smoke.py's full
 width (4096 stereo clips of 94 blocks of 512 samples at 48 kHz, inputs made
@@ -13,13 +14,17 @@ bench.py's seven-stage chain as chip_smoke.py's phase 4e runs it (8192
 clips, the burst input, ``metrics="final"``), or with ``--plugin serve`` 30
 serving ticks (``submit_many`` and ``tick_arrays``) of a ``StreamServer`` on
 that chain with all of chip_smoke.py's 4096 slots open, fed its PCM16 burst
-input. ``--mixed`` gives the corpus a texture material per clip
+input, or with ``--plugin relaxed`` ``relaxed_chain_stream`` (the relaxed
+tier, plain PyTorch operations on the card) on that chain at chip_smoke.py
+phase 7's width (256 clips, the burst input) over RELAXED_PROFILE_BLOCKS
+blocks. ``--mixed`` gives the corpus a texture material per clip
 (``arange(B) % 5``, bench.py's ``bench_mixed_materials``; the chain without
 its audio, as there): one warm-up run, one timed run, then one run under
 ``torch.profiler``. Prints the card's name and power limit, the timed and
 profiled walls, the profiled run's device busy time (the sum of its
 kernels' times) by kernel name, its host ops by their own host time, its
-count of ``cudaLaunchKernel`` calls, and its device idle share: one minus
+count of ``cudaLaunchKernel`` calls (and per block), and its device idle
+share: one minus
 busy over that same run's wall. The
 profiler's own host cost is in that wall, so the share is an upper bound
 for the unprofiled run. Needs a CUDA device; imports no JAX.
@@ -39,14 +44,19 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 from chip_smoke import (BATCH, BLOCK, CHAIN, CHAIN_CORPUS_BATCH,  # noqa: E402
                         CHANNELS, NUM_BLOCKS, PRESET, PUNCH_PRESET,
-                        SERVE_BLOCKS, SERVE_SLOTS, SERVE_TIMED, SR,
-                        make_batch, make_clicks)
+                        RELAXED_BATCH, SERVE_BLOCKS, SERVE_SLOTS,
+                        SERVE_TIMED, SR, make_batch, make_clicks)
+
+#: blocks of the relaxed chain per run (each makes ~36 k launches, which
+#: the profiler records one by one)
+RELAXED_PROFILE_BLOCKS = 4
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plugin", choices=("punch", "saturator", "texture",
-                                         "motion", "chain", "serve"),
+                                         "motion", "chain", "serve",
+                                         "relaxed"),
                     default="texture")
     ap.add_argument("--material", type=int, default=1)
     ap.add_argument("--mixed", action="store_true")
@@ -78,6 +88,9 @@ def main(argv=None):
         return
     if args.plugin == "serve":
         profile_serve(device)
+        return
+    if args.plugin == "relaxed":
+        profile_relaxed(device)
         return
     plugin = Plugin(args.plugin, SR, CHANNELS, BLOCK)
     if args.plugin == "texture":
@@ -123,6 +136,21 @@ def profile_serve(device):
     profile_run(run, f"serve ({SERVE_TIMED} ticks)", s, SERVE_TIMED)
 
 
+def profile_relaxed(device):
+    from juicy_tpu_torch.runtime.plugin import Chain
+    from juicy_tpu_torch.runtime.relaxed import relaxed_chain_stream
+
+    b, nb = RELAXED_BATCH, RELAXED_PROFILE_BLOCKS
+    chain = Chain(CHAIN, SR, CHANNELS, BLOCK)
+    clips = make_clicks(b, CHANNELS, nb * BLOCK, device, seed=71)
+
+    def run():
+        relaxed_chain_stream(chain, chain.init_state((b,), device), clips)
+        torch.cuda.synchronize()
+
+    profile_run(run, "relaxed chain", b, nb)
+
+
 def profile_run(run, tag, batch, blocks=NUM_BLOCKS):
     """A warm-up, a timed run and a profiled run of `run`; prints the
     walls, the device busy time by kernel and the idle share."""
@@ -148,7 +176,7 @@ def profile_run(run, tag, batch, blocks=NUM_BLOCKS):
     launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
     print(f"{tag}: B={batch} blocks={blocks}: wall {wall:.4f} s, "
           f"profiled wall {prof_wall:.4f} s, device busy {busy:.4f} s, "
-          f"cudaLaunchKernel {launches}")
+          f"cudaLaunchKernel {launches} ({launches / blocks:.0f} per block)")
     for key, t, count in device[:10]:
         print(f"  {t / 1e3:10.3f} ms  x{count:<6d} {key[:90]}")
     host = sorted(((e.key, e.self_cpu_time_total, e.count) for e in events
