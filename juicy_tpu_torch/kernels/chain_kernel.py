@@ -70,7 +70,7 @@ from juicy_tpu_torch.models import width as _width
 from juicy_tpu_torch.ops import noise as _noise
 from juicy_tpu_torch.ops.precise import F32, f32, onepole_narrow
 from juicy_tpu_torch.runtime.chain_fused import block_params, chain_automation
-from juicy_tpu_torch.runtime.observe import check_kernel_outputs
+from juicy_tpu_torch.runtime.observe import check_kernel_outputs, span
 from juicy_tpu_torch.runtime.plugin import _default_finalize
 from juicy_tpu_torch.utils.convert import db_to_gain, jmap
 
@@ -646,12 +646,13 @@ def _launch_blocks(kc, clips, an_states, return_audio: bool, tables=None):
     [nb, B])."""
     b, _c, t = clips.shape
     nb = t // kc.n
-    xt = clips.permute(2, 1, 0).contiguous()                 # [T, 2, B]
-    out_t = torch.empty_like(xt) if return_audio else None
-    fin, acc, fit = _lane_buffers(nb, b, clips.device)
-    prev = lane_seed(an_states, b, clips.device)
-    # without audio every block's output goes to one scratch block
-    sink = None if return_audio else torch.empty_like(xt[:kc.n])
+    with span("juicy.chain.pack"):
+        xt = clips.permute(2, 1, 0).contiguous()             # [T, 2, B]
+        out_t = torch.empty_like(xt) if return_audio else None
+        fin, acc, fit = _lane_buffers(nb, b, clips.device)
+        prev = lane_seed(an_states, b, clips.device)
+        # without audio every block's output goes to one scratch block
+        sink = None if return_audio else torch.empty_like(xt[:kc.n])
     for i in range(nb):
         sl = slice(i * kc.n, (i + 1) * kc.n)
         if tables is not None:
@@ -659,7 +660,8 @@ def _launch_blocks(kc, clips, an_states, return_audio: bool, tables=None):
         kc.launch(xt[sl], out_t[sl] if return_audio else sink, prev, fin[i],
                   acc[i], fit[i])
         prev = fin[i]
-    out = out_t.permute(2, 1, 0).contiguous() if return_audio else None
+    with span("juicy.chain.unpack"):
+        out = out_t.permute(2, 1, 0).contiguous() if return_audio else None
     return out, fin, acc, fit
 
 
@@ -690,12 +692,15 @@ def _run_cuda(chain, states, clips, return_audio: bool, rows=None,
     per block, with per-block constants under automation (`curves`,
     automation_curves). Returns (out [B, 2, T] or None, dsp states, fin
     [nb, 14, 5, B], acc [nb, 14, 10, B], context fit [nb, B])."""
-    kc = KernelChain(chain, states, clips.shape[0], clips.device, rows)
-    tables = block_tables(kc, chain, curves, clips.shape[-1] // kc.n) \
-        if curves else None
+    with span("juicy.chain.pack"):
+        kc = KernelChain(chain, states, clips.shape[0], clips.device, rows)
+        tables = block_tables(kc, chain, curves, clips.shape[-1] // kc.n) \
+            if curves else None
     out, fin, acc, fit = _launch_blocks(
         kc, clips, [st["analyzer"] for st in states], return_audio, tables)
-    return out, kc.unpack(states, fit[-1]), fin, acc, fit
+    with span("juicy.chain.unpack"):
+        dsps = kc.unpack(states, fit[-1])
+    return out, dsps, fin, acc, fit
 
 
 def chain_block_plain(chain, dsps, lane_prev, block):
@@ -812,43 +817,44 @@ def finalize_stream(chain, an0, fin, acc, fit, params_list=None):
     ``finalize_block`` applied block by block. `params_list`: each stage's
     full params with [B] leaves (per-clip rows), where the chain's are not
     the clips'."""
-    n, sr = chain.block_size, chain.sr
-    nb, _lanes, _rows, b = fin.shape
-    inv_n = f32(1.0 / n)
+    with span("juicy.finalize"):
+        n, sr = chain.block_size, chain.sr
+        nb, _lanes, _rows, b = fin.shape
+        inv_n = f32(1.0 / n)
 
-    def f(j):
-        return fin[:, :, j]                               # [nb, 14, B]
+        def f(j):
+            return fin[:, :, j]                           # [nb, 14, B]
 
-    def a(j):
-        return acc[:, :, j]
+        def a(j):
+            return acc[:, :, j]
 
-    mets, ema_in = _an._lane_stateless(
-        f(0), f(1), f(2), f(3), f(4), a(0), a(1), a(4), a(5), a(2), a(3),
-        a(6), a(4), a(7), torch.sqrt(a(8) * inv_n), torch.sqrt(a(9) * inv_n),
-        n, sr)
-    rep, fat = (torch.stack([torch.broadcast_to(st[key], (b,))
-                             for st in an0]).to(fin.device)
-                for key in ("repetition_ema", "fatigue_ema"))   # [7, B]
-    density, risk = torch.empty_like(f(0)), torch.empty_like(f(0))
-    for blk in range(nb):
-        for half in (0, 1):                  # the pre lanes, then the post
-            rep, fat, density[blk, half::2], risk[blk, half::2] = \
-                _an._ema_update(rep, fat, {k: v[blk, half::2]
-                                           for k, v in ema_in.items()})
-    new_an, metrics = [], []
-    for i in range(len(an0)):
-        pre, post = ({k: v[:, s] for k, v in mets.items()}
-                     for s in (2 * i, 2 * i + 1))
-        for m, s in ((pre, 2 * i), (post, 2 * i + 1)):
-            m["repetition_density"] = density[:, s]
-            m["fatigue_risk"] = risk[:, s]
-        metrics.append(_finalize(chain, i, pre, post, fit, params_list))
-        last = fin[-1, 2 * i + 1]
-        new_an.append({"short_env": last[0], "long_env": last[1],
-                       "low_state": last[2], "high_state": last[3],
-                       "repetition_ema": rep[i], "fatigue_ema": fat[i],
-                       "onset_cooldown": last[4].to(torch.int32)})
-    return new_an, metrics
+        mets, ema_in = _an._lane_stateless(
+            f(0), f(1), f(2), f(3), f(4), a(0), a(1), a(4), a(5), a(2), a(3),
+            a(6), a(4), a(7), torch.sqrt(a(8) * inv_n),
+            torch.sqrt(a(9) * inv_n), n, sr)
+        rep, fat = (torch.stack([torch.broadcast_to(st[key], (b,))
+                                 for st in an0]).to(fin.device)
+                    for key in ("repetition_ema", "fatigue_ema"))   # [7, B]
+        density, risk = torch.empty_like(f(0)), torch.empty_like(f(0))
+        for blk in range(nb):
+            for half in (0, 1):              # the pre lanes, then the post
+                rep, fat, density[blk, half::2], risk[blk, half::2] = \
+                    _an._ema_update(rep, fat, {k: v[blk, half::2]
+                                               for k, v in ema_in.items()})
+        new_an, metrics = [], []
+        for i in range(len(an0)):
+            pre, post = ({k: v[:, s] for k, v in mets.items()}
+                         for s in (2 * i, 2 * i + 1))
+            for m, s in ((pre, 2 * i), (post, 2 * i + 1)):
+                m["repetition_density"] = density[:, s]
+                m["fatigue_risk"] = risk[:, s]
+            metrics.append(_finalize(chain, i, pre, post, fit, params_list))
+            last = fin[-1, 2 * i + 1]
+            new_an.append({"short_env": last[0], "long_env": last[1],
+                           "low_state": last[2], "high_state": last[3],
+                           "repetition_ema": rep[i], "fatigue_ema": fat[i],
+                           "onset_cooldown": last[4].to(torch.int32)})
+        return new_an, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -899,23 +905,29 @@ def _ordered(run, chain, states, clips, return_audio: bool, rows=None,
     share, over the clips sorted by material into runs of 32
     (stage_kernels.MaterialOrder: one gather of the clips, their states and
     rows before, one scatter of the outputs, states and lanes after; the
-    padding never leaves). Same contract as `run`."""
-    order = sk.material_order(kernel_mode(chain, rows))
-    if order is None:
+    padding never leaves). Same contract as `run`. The sorted route's two
+    halves are the spans ``juicy.order.gather`` (the order's host sort
+    among them) and ``juicy.order.scatter``."""
+    mode = kernel_mode(chain, rows)
+    if isinstance(mode, int) or sk.cta_uniform(mode):
         return run(chain, states, clips, return_audio, rows, curves)
-    b = clips.shape[0]
-    sub = copy.copy(chain)
-    sub.params = [order.tree(p, b) for p in chain.params]
-    sub_states = [{g: order.tree(st[g], b) for g in ("analyzer", "dsp")}
-                  for st in states]
-    sub_rows = None if rows is None else rows.take(order.take.numpy())
-    out, dsps, fin, acc, fit = run(sub, sub_states, order.clips(clips),
-                                   return_audio, sub_rows, curves)
-    bp = len(order.take)
-    return (None if out is None else order.scatter(out),
-            [order.tree(d, bp, scatter=True) for d in dsps],
-            order.scatter(fin, -1), order.scatter(acc, -1),
-            order.scatter(fit, -1))
+    with span("juicy.order.gather"):
+        order = sk.MaterialOrder(mode)
+        b = clips.shape[0]
+        sub = copy.copy(chain)
+        sub.params = [order.tree(p, b) for p in chain.params]
+        sub_states = [{g: order.tree(st[g], b) for g in ("analyzer", "dsp")}
+                      for st in states]
+        sub_rows = None if rows is None else rows.take(order.take.numpy())
+        sub_clips = order.clips(clips)
+    out, dsps, fin, acc, fit = run(sub, sub_states, sub_clips, return_audio,
+                                   sub_rows, curves)
+    with span("juicy.order.scatter"):
+        bp = len(order.take)
+        return (None if out is None else order.scatter(out),
+                [order.tree(d, bp, scatter=True) for d in dsps],
+                order.scatter(fin, -1), order.scatter(acc, -1),
+                order.scatter(fit, -1))
 
 
 def _automated_params(chain, rows, curves, device):

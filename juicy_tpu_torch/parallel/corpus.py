@@ -25,6 +25,7 @@ import torch
 
 from juicy_tpu_torch.parallel.mesh import gather, make_mesh, shard_clips
 from juicy_tpu_torch.runtime.device import on_device, resolve_device
+from juicy_tpu_torch.runtime.observe import span
 from juicy_tpu_torch.runtime.plugin import (Plugin, automation_curves,
                                             params_at)
 
@@ -311,7 +312,8 @@ def run_corpus_chain(chain, clips, metrics: str = "final",
     executor runs texture's traced model clip by clip.
 
     Returns (out [B, C, T] or None, per-stage metrics, corpus aggregates of
-    the last stage's metrics, or None under "none")."""
+    the last stage's metrics, or None under "none"). Each device's call is
+    the span ``juicy.corpus_chain`` under a profiler (observe.span)."""
     from juicy_tpu_torch.kernels import chain_kernel as ck
     from juicy_tpu_torch.runtime.chain_fused import fused_chain_stream
 
@@ -324,26 +326,28 @@ def run_corpus_chain(chain, clips, metrics: str = "final",
             return _chain_sharded(chain, clips, mesh, metrics, use_kernel,
                                   automation, materials, return_audio)
         device = mesh.axis_devices("data")[0]
-    clips = _corpus_on(clips, device)
-    if materials is not None:
-        values = _tex_materials(materials)
-        if values.shape[0] != clips.shape[0]:
-            raise ValueError(f"materials must have one entry per clip: "
-                             f"{values.shape[0]} vs batch {clips.shape[0]}")
-        chain = with_materials(chain, values)
-    kernel = use_kernel != "never" and ck.supports_chain_kernel(chain)
-    if use_kernel == "always" and not (kernel and clips.is_cuda):
-        raise ck.ChainKernelUnsupported(
-            f"no chain-kernel path for this chain on {clips.device}: the "
-            f"kernel takes the canonical stereo chain with a static or "
-            f"per-clip texture material, on CUDA tensors")
-    states = chain.init_state((clips.shape[0],), clips.device)
-    stream = ck.chain_kernel_stream if kernel else fused_chain_stream
-    out, _states, ms = stream(chain, states, clips, metrics=metrics,
-                              return_audio=return_audio,
-                              automation=automation)
-    agg = None if ms is None else corpus_metrics(ms[-1])
-    return out, ms, agg
+    with span("juicy.corpus_chain"):
+        clips = _corpus_on(clips, device)
+        if materials is not None:
+            values = _tex_materials(materials)
+            if values.shape[0] != clips.shape[0]:
+                raise ValueError(f"materials must have one entry per "
+                                 f"clip: {values.shape[0]} vs batch "
+                                 f"{clips.shape[0]}")
+            chain = with_materials(chain, values)
+        kernel = use_kernel != "never" and ck.supports_chain_kernel(chain)
+        if use_kernel == "always" and not (kernel and clips.is_cuda):
+            raise ck.ChainKernelUnsupported(
+                f"no chain-kernel path for this chain on {clips.device}: the "
+                f"kernel takes the canonical stereo chain with a static or "
+                f"per-clip texture material, on CUDA tensors")
+        states = chain.init_state((clips.shape[0],), clips.device)
+        stream = ck.chain_kernel_stream if kernel else fused_chain_stream
+        out, _states, ms = stream(chain, states, clips, metrics=metrics,
+                                  return_audio=return_audio,
+                                  automation=automation)
+        agg = None if ms is None else corpus_metrics(ms[-1])
+        return out, ms, agg
 
 
 def _chain_sharded(chain, clips, mesh, metrics, use_kernel, automation,

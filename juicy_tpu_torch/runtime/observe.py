@@ -1,5 +1,5 @@
-"""Observability: tracing, throughput counters and failure guards. PyTorch
-port of juicy_tpu/runtime/observe.py.
+"""Observability: tracing, spans and failure guards. PyTorch port of
+juicy_tpu/runtime/observe.py.
 
 The reference has no tracing or sanitizers; its only hygiene is
 ScopedNoDenormals (JuicyPunch/PluginProcessor.cpp:67) and JuicyTexture's
@@ -8,12 +8,15 @@ JuicyTexture/PluginProcessor.cpp:252-276). Here:
 
   * ``trace()``: a ``torch.profiler`` context that writes a Chrome trace
     (``trace.json``, chrome://tracing or Perfetto) into its directory;
+  * ``span(name)``: a ``torch.profiler.record_function`` span around a
+    phase of the program while a profiler records (``trace()`` or any
+    ``torch.profiler.profile``), a shared no-op otherwise; the spans land
+    in the profiler's trace beside the device's kernels and copies;
   * ``enable_nan_checks()``: raise ``FloatingPointError`` at the first
     operation whose floating output holds a NaN, as ``jax_debug_nans``
     does: a ``TorchDispatchMode`` checks every PyTorch operation's outputs,
     and the hand-written kernels' wrappers check their outputs after each
     launch (``check_kernel_outputs``);
-  * ``ThroughputMeter``: per-stage audio-seconds per second, with jsonl;
   * ``validate_block`` / ``sanitize_block``: input checks and NaN/Inf
     guards;
   * ``guarded_step``: wraps a step function, zeroes non-finite outputs and
@@ -23,11 +26,9 @@ JuicyTexture/PluginProcessor.cpp:252-276). Here:
 from __future__ import annotations
 
 import contextlib
-import json
 import os
 import tempfile
-import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Optional
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -51,6 +52,21 @@ def trace(log_dir: Optional[str] = None):
     with profile(activities=activities) as prof:
         yield log_dir
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that records the phase `name` as a ``user_annotation``
+    span of the profiler's trace (``torch.profiler.record_function``) while
+    a profiler records, and that is a shared no-op otherwise: a
+    ``record_function`` costs host time even with no profiler on, some
+    fifty times the check whether one records. Open it once per phase of
+    a call, not per launch."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 # operations whose outputs are uninitialized memory, not results
@@ -97,34 +113,6 @@ def check_kernel_outputs(name: str, tensors) -> None:
     (just launched) holds a NaN; nothing otherwise."""
     if _nan_mode is not None:
         _raise_on_nan(name, tensors)
-
-
-class ThroughputMeter:
-    """Running audio-sec/sec counters per pipeline stage."""
-
-    def __init__(self, sr: float = 48000.0):
-        self.sr = sr
-        self.stages: Dict[str, Dict[str, float]] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str, samples: int, batch: int = 1):
-        t0 = time.perf_counter()
-        yield
-        wall = time.perf_counter() - t0
-        s = self.stages.setdefault(name, {"audio_s": 0.0, "wall_s": 0.0,
-                                          "calls": 0})
-        s["audio_s"] += batch * samples / self.sr
-        s["wall_s"] += wall
-        s["calls"] += 1
-
-    def report(self) -> Dict[str, Dict[str, float]]:
-        return {k: {**v, "x_realtime": (v["audio_s"] / v["wall_s"]
-                                        if v["wall_s"] else 0.0)}
-                for k, v in self.stages.items()}
-
-    def write_jsonl(self, path: str):
-        with open(path, "a") as f:
-            f.write(json.dumps({"ts": time.time(), **self.report()}) + "\n")
 
 
 def validate_block(block, channels: Optional[int] = None):

@@ -4,9 +4,10 @@
 on the same blocks (guarded_step over the saturator, and over motion with a
 batch whose state leaves the step shares: the faulted clip gets its own
 state back, the healthy ones keep the new one, the u32 ``rng`` carrier
-included), ``ThroughputMeter`` against JAX's, ``trace`` writing a Chrome
-trace, and ``enable_nan_checks`` raising ``FloatingPointError`` at the
-first operation that makes a NaN, as ``jax_debug_nans`` does.
+included), ``trace`` writing a Chrome trace (its spans:
+test_torch_spans.py), and ``enable_nan_checks`` raising
+``FloatingPointError`` at the first operation that makes a NaN, as
+``jax_debug_nans`` does.
 """
 
 import json
@@ -122,24 +123,6 @@ def test_torch_guarded_step_rolls_back_shared_leaves():
     # clip 1's state is the state it came in with, bit for bit
     for key, v in tstate["dsp"].items():
         assert torch.equal(t[1]["dsp"][key][1], v), key
-
-
-def test_torch_throughput_meter(tmp_path):
-    jm, tm = jobs.ThroughputMeter(SR), tobs.ThroughputMeter(SR)
-    for m in (jm, tm):
-        with m.stage("analyze", samples=48000, batch=4):
-            pass
-        with m.stage("analyze", samples=24000):
-            pass
-    rj, rt = jm.report(), tm.report()
-    assert set(rt) == set(rj) == {"analyze"}
-    for k in ("audio_s", "calls"):
-        assert rt["analyze"][k] == rj["analyze"][k]
-    assert rt["analyze"]["x_realtime"] > 0
-    path = tmp_path / "m.jsonl"
-    tm.write_jsonl(str(path))
-    row = json.loads(path.read_text())
-    assert row["analyze"]["audio_s"] == pytest.approx(4.5)
 
 
 def test_torch_trace_writes_chrome_trace(tmp_path):
