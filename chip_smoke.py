@@ -112,6 +112,14 @@ raises on failure:
     at B = 8192 (94 launches and no other; its wall beside the
     unautomated one; 256 clips x 4 blocks against "never"); the automated
     launch alone beside the unautomated one, in turns;
+4h. the finalize's EMA kernel (``ema_scan``, csrc/finalize.cu, which
+    replaces no TPU kernel): one launch per ``run_corpus_chain`` call at
+    B = 8192; on the chain's own lanes (bench.py's chain on the burst
+    input, 94 blocks, the formulas' onset rates and penalties) bit-equal to
+    its plain walk, and at a ragged B = 100 with an inf and a NaN among the
+    inputs and a NaN in the state; its time alone at B = 8192, nb = 94
+    with its bytes bound, the plain walk's and the whole
+    ``finalize_stream``'s. ``--phase 4h`` runs it alone, after the build;
 5.  serving: ``StreamServer`` on bench.py's chain with 4096 slots, all
     open, fed the burst input (PCM16 values) by ``submit_many``: 8 ticks,
     one chain-kernel launch per tick and no other; then per-slot edits on a
@@ -1694,6 +1702,84 @@ def phase_automation(device):
                   "unautomated_walls_s": p_walls["flat"]}}
 
 
+#: f32 operations of one step of the finalize's EMA pair (csrc/finalize.cu
+#: ema_step: two subtracts, two adds and two multiplies for the EMAs, a
+#: divide, three multiplies and two adds for the instant fatigue, three
+#: clamps of two extrema each)
+EMA_OPS = 18
+
+
+def ema_bound(b, nb):
+    """ema_scan: the three inputs [nb, 14, B] read and the two outputs
+    written once, the two EMA states [7, B] in and out."""
+    nbytes = 4 * (5 * nb * 14 * b + 4 * 7 * b)
+    return bound(nbytes, EMA_OPS * nb * 14 * b)
+
+
+def phase_ema_scan(device):
+    """4h: the finalize's EMA kernel (ema_scan, csrc/finalize.cu) on the
+    main path's inputs."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from juicy_tpu_torch.parallel.corpus import run_corpus_chain
+
+    t_phase = time.perf_counter()
+    b = CHAIN_CORPUS_BATCH
+    chain = bench_chain()
+    clips = make_clicks(b, CHANNELS, NUM_BLOCKS * BLOCK, device, seed=31)
+    run_corpus_chain(chain, clips, metrics="final")     # warm-up
+    torch.cuda.synchronize()
+    ck.ema_scan.launches = 0
+    run_corpus_chain(chain, clips, metrics="final")
+    torch.cuda.synchronize()
+    corpus_launches = ck.ema_scan.launches
+    if corpus_launches != 1:
+        raise AssertionError(f"ema_scan: {corpus_launches} launches in one "
+                             f"run_corpus_chain call")
+    st = chain.init_state((b,), device)
+    an0 = [s["analyzer"] for s in st]
+    _o, _d, fin, acc, fit = ck._run_cuda(chain, st, clips, False)
+    del clips, _o, _d
+    _mets, ema_in = ck._lane_formulas(chain, fin, acc)
+    inputs = [ema_in[k].contiguous() for k in ck.EMA_INPUTS]
+    del _mets, ema_in
+    rep, fat = (torch.stack([torch.broadcast_to(a[k], (b,)) for a in an0])
+                for k in ("repetition_ema", "fatigue_ema"))
+    got = ck.ema_scan(rep, fat, *inputs)
+    want = ck.ema_scan_plain(rep, fat, *inputs)
+    torch.cuda.synchronize()
+    tensors_equal(f"ema_scan B={b} nb={NUM_BLOCKS}", got, want)
+    # a ragged batch, a NaN and an inf among the inputs, a NaN in the state
+    rb = RAGGED_BATCH
+    r_in = [v[..., :rb].clone() for v in inputs]
+    r_in[0][NUM_BLOCKS // 2, 3, 7] = float("inf")
+    r_in[1][NUM_BLOCKS - 1, 10, rb - 1] = float("nan")
+    r_rep, r_fat = rep[:, :rb].clone(), fat[:, :rb].clone()
+    r_fat[2, 0] = float("nan")
+    r_got = ck.ema_scan(r_rep, r_fat, *r_in)
+    tensors_equal(f"ema_scan B={rb} with NaN and inf", r_got,
+                  ck.ema_scan_plain(r_rep, r_fat, *r_in))
+    print(f"ema_scan: bit-equal to its plain walk at B={b}, nb={NUM_BLOCKS} "
+          f"(the chain's lanes) and at B={rb} with NaN and inf; one launch "
+          f"per run_corpus_chain call")
+
+    def launch():
+        ck.ema_scan(rep, fat, *inputs)
+
+    ms = min(kernel_ms(launch, 50) for _ in range(3))
+    plain_ms = cuda_ms(lambda: ck.ema_scan_plain(rep, fat, *inputs), 3)
+    fin_ms = cuda_ms(lambda: ck.finalize_stream(chain, an0, fin, acc, fit), 3)
+    bound_ms, bound_by = ema_bound(b, NUM_BLOCKS)
+    print(f"ema_scan alone at B={b}, nb={NUM_BLOCKS}: {ms:.4f} ms "
+          f"(bound {bound_ms:.4f} ms, {bound_by}: {100 * bound_ms / ms:.1f}%)"
+          f"; plain walk {plain_ms:.2f} ms; finalize_stream whole "
+          f"{fin_ms:.2f} ms")
+    print(f"phase 4h: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": corpus_launches, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "finalize_stream_ms": fin_ms,
+            "max_abs_err": max_diff(got[0], want[0])}
+
+
 def phase_texture_corpus(device):
     """gel, metal and wood at full width; each run read on its own."""
     from juicy_tpu_torch.kernels import stage_kernels as sk
@@ -2861,7 +2947,8 @@ def main():
     device = torch.device("cuda", 0)
     phase_device()
     phase_build()
-    alone = {"6": phase_host, "7": phase_relaxed, "8": phase_mesh}
+    alone = {"4h": phase_ema_scan, "6": phase_host, "7": phase_relaxed,
+             "8": phase_mesh}
     if len(sys.argv) == 3 and sys.argv[1] == "--phase" \
             and sys.argv[2] in alone:                    # one phase alone
         alone[sys.argv[2]](device)
@@ -2877,6 +2964,7 @@ def main():
     chain_corpus = phase_chain_corpus(device)
     mixed = phase_mixed_materials(device)
     automation = phase_automation(device)
+    ema = phase_ema_scan(device)
     sat_launches = phase_corpus(device, plugin, params)
     tex_launches = phase_texture_corpus(device)
     pm_launches = phase_punch_motion_corpus(device)
@@ -2952,6 +3040,13 @@ def main():
         "source": "juicy_tpu_torch/csrc/saturator_stage.cu",
         "replaces": "juicy_tpu/kernels/saturator_kernel.py:136",
         **sat_fused,
+    }, {
+        "name": "ema_scan",
+        "route": "cuda",
+        "source": "juicy_tpu_torch/csrc/finalize.cu",
+        "replaces": None,
+        "timed_batch": CHAIN_CORPUS_BATCH,
+        **ema,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

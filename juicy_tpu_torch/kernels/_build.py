@@ -153,6 +153,8 @@ def load_library() -> ctypes.CDLL:
     lib.juicy_analyzer_block.restype = i32
     lib.juicy_analyzer_geometry.argtypes = [i32, i32, ptr]
     lib.juicy_analyzer_geometry.restype = i32
+    lib.juicy_ema_scan.argtypes = [ptr] * 9 + [i32] * 3 + [ptr]
+    lib.juicy_ema_scan.restype = i32
     lib.juicy_cuda_error_string.argtypes = [i32]
     lib.juicy_cuda_error_string.restype = ctypes.c_char_p
     return lib

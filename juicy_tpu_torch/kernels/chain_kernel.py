@@ -28,8 +28,10 @@ device raises, and neither route gives way to the other.
 
 Then the score formulas: ``finalize_stream`` once over all 14 lanes × nb
 blocks (the step's too, over nb = 1), with the repetition/fatigue EMA pair
-run serially over 2·nb steps for all seven analyzers at once, so that the
-stream's metrics are bit-equal to ``finalize_block`` applied block by block.
+run serially over 2·nb steps for all seven analyzers at once (``ema_scan``:
+one launch of ``csrc/finalize.cu`` for CUDA lanes, the plain walk for CPU
+lanes), so that the stream's metrics are bit-equal to ``finalize_block``
+applied block by block.
 (JAX's stream path reassociates that EMA with an associative scan, about
 1e-6 from the serial order.)
 
@@ -808,39 +810,116 @@ def finalize_block(chain, an_states, fin, acc, fit):
     return new_an, metrics
 
 
+def _lane_formulas(chain, fin, acc):
+    """The score formulas of every lane of a stream (fin [nb, 14, 5, B],
+    acc [nb, 14, 10, B]) at once: ``_an._lane_stateless``'s (metrics without
+    the EMA fields, EMA inputs), leaves [nb, 14, B]."""
+    n, sr = chain.block_size, chain.sr
+    inv_n = f32(1.0 / n)
+
+    def f(j):
+        return fin[:, :, j]                               # [nb, 14, B]
+
+    def a(j):
+        return acc[:, :, j]
+
+    return _an._lane_stateless(
+        f(0), f(1), f(2), f(3), f(4), a(0), a(1), a(4), a(5), a(2), a(3),
+        a(6), a(4), a(7), torch.sqrt(a(8) * inv_n), torch.sqrt(a(9) * inv_n),
+        n, sr)
+
+
+#: ema_scan's inputs, in its argument order, by their ``_lane_stateless`` keys
+EMA_INPUTS = ("onset_rate", "crest_penalty", "harsh_penalty")
+
+
+def ema_scan_plain(rep, fat, onset_rate, crest_penalty, harsh_penalty):
+    """Plain PyTorch version of ``ema_scan``: the repetition/fatigue EMA
+    pair walked serially over a stream's lanes, block by block, the pre
+    lanes (slots 2i) then the post lanes (2i + 1), for every analyzer at
+    once (``_an._ema_update`` per step). rep, fat [A, B] before the first
+    block; the inputs [nb, 2A, B]. Returns (repetition_density,
+    fatigue_risk [nb, 2A, B], rep, fat [A, B] after the last block)."""
+    ema_in = dict(zip(EMA_INPUTS, (onset_rate, crest_penalty, harsh_penalty)))
+    density, risk = torch.empty_like(onset_rate), torch.empty_like(onset_rate)
+    for blk in range(onset_rate.shape[0]):
+        for half in (0, 1):              # the pre lanes, then the post
+            rep, fat, density[blk, half::2], risk[blk, half::2] = \
+                _an._ema_update(rep, fat, {k: v[blk, half::2]
+                                           for k, v in ema_in.items()})
+    return density, risk, rep, fat
+
+
+def _check_ema(rep, fat, *ema_in):
+    for t in (rep, fat, *ema_in):
+        if not (isinstance(t, torch.Tensor) and t.dtype == F32
+                and t.is_contiguous() and t.device == rep.device):
+            raise ValueError("ema_scan takes contiguous float32 tensors on "
+                             "one device")
+    if rep.ndim != 2 or fat.shape != rep.shape or 0 in rep.shape:
+        raise ValueError(f"ema_scan: rep {tuple(rep.shape)} and fat "
+                         f"{tuple(fat.shape)} must be one [A, B]")
+    lanes, b = 2 * rep.shape[0], rep.shape[1]
+    for t in ema_in:
+        if t.ndim != 3 or t.shape[1:] != (lanes, b) or t.shape[0] == 0:
+            raise ValueError(f"ema_scan: input {tuple(t.shape)}, expected "
+                             f"[nb, {lanes}, {b}] with nb >= 1")
+
+
+def ema_scan(rep, fat, onset_rate, crest_penalty, harsh_penalty):
+    """The stream's repetition/fatigue EMA pair, ``ema_scan_plain``'s
+    contract: for CUDA tensors one launch of ``juicy_ema_scan``
+    (csrc/finalize.cu; a thread per analyzer and clip walks the 2·nb steps)
+    on the tensors' card's current stream, for CPU tensors the plain
+    version. ValueError, before any launch, unless every argument is
+    contiguous float32 on one device in the shapes of the contract."""
+    _check_ema(rep, fat, onset_rate, crest_penalty, harsh_penalty)
+    if rep.device.type == "cpu":
+        return ema_scan_plain(rep, fat, onset_rate, crest_penalty,
+                              harsh_penalty)
+    if rep.device.type != "cuda":
+        raise ValueError(f"no EMA kernel for device {rep.device}")
+    from juicy_tpu_torch.kernels import _build
+
+    density, risk = torch.empty_like(onset_rate), torch.empty_like(onset_rate)
+    rep1, fat1 = torch.empty_like(rep), torch.empty_like(fat)
+    lib = _build.load_library()
+    with torch.cuda.device(rep.device):
+        stream = torch.cuda.current_stream(rep.device).cuda_stream
+        err = lib.juicy_ema_scan(
+            onset_rate.data_ptr(), crest_penalty.data_ptr(),
+            harsh_penalty.data_ptr(), rep.data_ptr(), fat.data_ptr(),
+            density.data_ptr(), risk.data_ptr(), rep1.data_ptr(),
+            fat1.data_ptr(), onset_rate.shape[0], rep.shape[0], rep.shape[1],
+            stream)
+    if err != 0:
+        raise RuntimeError(f"juicy_ema_scan launch failed: CUDA error {err} "
+                           f"({_build.error_string(lib, err)})")
+    ema_scan.launches += 1
+    return density, risk, rep1, fat1
+
+
+#: EMA kernel launches made by ema_scan (CUDA tensors only)
+ema_scan.launches = 0
+
+
 def finalize_stream(chain, an0, fin, acc, fit, params_list=None):
     """A stream's lanes (fin [nb, 14, 5, B], acc [nb, 14, 10, B], context
     fit [nb, B]) -> (analyzer states', per-stage metrics with leaves
     [nb, B]). The score formulas run once over all 14 lanes × nb blocks;
     the repetition/fatigue EMA pair runs serially over 2·nb steps (pre, then
-    post, per block) for the seven analyzers at once: bit-equal to
-    ``finalize_block`` applied block by block. `params_list`: each stage's
-    full params with [B] leaves (per-clip rows), where the chain's are not
-    the clips'."""
+    post, per block) for the seven analyzers at once (``ema_scan``: one
+    kernel launch for CUDA lanes): bit-equal to ``finalize_block`` applied
+    block by block. `params_list`: each stage's full params with [B] leaves
+    (per-clip rows), where the chain's are not the clips'."""
     with span("juicy.finalize"):
-        n, sr = chain.block_size, chain.sr
-        nb, _lanes, _rows, b = fin.shape
-        inv_n = f32(1.0 / n)
-
-        def f(j):
-            return fin[:, :, j]                           # [nb, 14, B]
-
-        def a(j):
-            return acc[:, :, j]
-
-        mets, ema_in = _an._lane_stateless(
-            f(0), f(1), f(2), f(3), f(4), a(0), a(1), a(4), a(5), a(2), a(3),
-            a(6), a(4), a(7), torch.sqrt(a(8) * inv_n),
-            torch.sqrt(a(9) * inv_n), n, sr)
+        b = fin.shape[-1]
+        mets, ema_in = _lane_formulas(chain, fin, acc)
         rep, fat = (torch.stack([torch.broadcast_to(st[key], (b,))
                                  for st in an0]).to(fin.device)
                     for key in ("repetition_ema", "fatigue_ema"))   # [7, B]
-        density, risk = torch.empty_like(f(0)), torch.empty_like(f(0))
-        for blk in range(nb):
-            for half in (0, 1):              # the pre lanes, then the post
-                rep, fat, density[blk, half::2], risk[blk, half::2] = \
-                    _an._ema_update(rep, fat, {k: v[blk, half::2]
-                                               for k, v in ema_in.items()})
+        density, risk, rep, fat = ema_scan(
+            rep, fat, *(ema_in[k].contiguous() for k in EMA_INPUTS))
         new_an, metrics = [], []
         for i in range(len(an0)):
             pre, post = ({k: v[:, s] for k, v in mets.items()}

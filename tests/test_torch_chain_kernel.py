@@ -27,7 +27,10 @@ analyzers' EMA states within 1e-5. On the port alone: the stream equals
 ``Chain.batched_run`` (audio and DSP state bit-equal, metrics within 1e-6 of
 their scale: the analyzer's block sums are taken in another order),
 ``finalize_stream`` equals ``finalize_block`` applied block by block bit for
-bit, the kernel-form state goes back to the ``Chain`` form unchanged, and
+bit, its EMA walk (``ema_scan_plain``, and ``ema_scan`` on CPU tensors) equals
+``_ema_update`` step by step with NaN and +-inf among the inputs, ``ema_scan``
+refuses a wrong dtype, layout, shape or device before any launch, the
+kernel-form state goes back to the ``Chain`` form unchanged, and
 ``run_corpus_chain``'s routes and refusals. The CUDA kernel itself is held to
 the plain version on the card (tests/test_torch_cuda.py).
 """
@@ -41,6 +44,8 @@ import torch
 import juicy_tpu.kernels.stage_kernels as jsk
 from juicy_tpu.runtime.chain_fused import fused_chain_stream as j_fused_stream
 from juicy_tpu.runtime.plugin import Chain as JChain
+from juicy_tpu_torch import analyzer as tan
+from juicy_tpu_torch.kernels import _build
 from juicy_tpu_torch.kernels import chain_kernel as ck
 from juicy_tpu_torch.parallel.corpus import run_corpus_chain
 from juicy_tpu_torch.runtime.chain_fused import (fused_chain_step,
@@ -48,6 +53,7 @@ from juicy_tpu_torch.runtime.chain_fused import (fused_chain_step,
 from juicy_tpu_torch.runtime.plugin import Chain as TChain
 from juicy_tpu_torch.utils.from_jax import to_numpy
 from tests.conftest import residual_dbfs
+from tests.ema_cases import ANALYZERS, assert_same_bits, ema_inputs
 from tests.test_torch_punch_motion import assert_metrics_close, burst_clips
 from tests.torch_jax_ref import assert_material_ran, no_fma_reference
 
@@ -225,6 +231,76 @@ def test_torch_finalize_stream_matches_finalize_block():
     for a, b in zip(new_an, an, strict=True):
         for key, v in b.items():
             assert a[key].dtype == v.dtype and torch.equal(a[key], v), key
+
+
+@pytest.mark.parametrize("nb", [1, 3, 94])
+def test_torch_ema_scan_plain_matches_ema_update(nb):
+    """The finalize's EMA walk (ema_scan_plain, and ema_scan on CPU tensors,
+    which takes it without a launch) equals analyzer._ema_update applied
+    step by step to each analyzer, block by block, its pre lane then its
+    post lane, bit for bit, with NaN and +-inf among the inputs."""
+    rep0, fat0, onset, crest, harsh = ema_inputs(nb, 5, seed=nb)
+    got = ck.ema_scan_plain(rep0, fat0, onset, crest, harsh)
+    launches = ck.ema_scan.launches
+    routed = ck.ema_scan(rep0, fat0, onset, crest, harsh)
+    assert ck.ema_scan.launches == launches
+    for a, b in zip(routed, got, strict=True):
+        assert_same_bits(a, b)
+    density, risk, rep1, fat1 = got
+    assert density.shape == risk.shape == onset.shape
+    for i in range(ANALYZERS):
+        rep, fat = rep0[i], fat0[i]
+        for blk in range(nb):
+            for s in (2 * i, 2 * i + 1):
+                rep, fat, d, r = tan._ema_update(
+                    rep, fat, {"onset_rate": onset[blk, s],
+                               "crest_penalty": crest[blk, s],
+                               "harsh_penalty": harsh[blk, s]})
+                assert_same_bits(density[blk, s], d, (blk, s))
+                assert_same_bits(risk[blk, s], r, (blk, s))
+        assert_same_bits(rep1[i], rep, i)
+        assert_same_bits(fat1[i], fat, i)
+    assert bool(torch.isnan(density).any()) and bool(torch.isfinite(risk).any())
+
+
+def _bad_ema_args(case):
+    """ema_scan's arguments (rep, fat, onset, crest, harsh) with one fault."""
+    rep, fat, onset, crest, harsh = ema_inputs(2, 4)
+    if case == "float64":
+        crest = crest.double()
+    elif case == "strided":
+        harsh = harsh.transpose(1, 2).contiguous().transpose(1, 2)
+    elif case == "lanes":
+        onset = onset[:, :12].contiguous()
+    elif case == "batch":
+        harsh = harsh[..., :3].contiguous()
+    elif case == "no_blocks":
+        onset, crest, harsh = (t[:0] for t in (onset, crest, harsh))
+    elif case == "state_shape":
+        fat = fat[:6].contiguous()
+    elif case == "state_rank":
+        rep, fat = rep[0], fat[0]
+    elif case == "not_a_tensor":
+        rep = rep.tolist()
+    elif case == "device":
+        crest = crest.to("meta")
+    return rep, fat, onset, crest, harsh
+
+
+@pytest.mark.parametrize("case", ["float64", "strided", "lanes", "batch",
+                                  "no_blocks", "state_shape", "state_rank",
+                                  "not_a_tensor", "device"])
+def test_torch_ema_scan_refuses(case, monkeypatch):
+    """ema_scan raises ValueError on a wrong dtype, layout, shape or device
+    before it loads the library or launches anything."""
+    def no_library():
+        raise AssertionError("the library was loaded")
+
+    monkeypatch.setattr(_build, "load_library", no_library)
+    launches = ck.ema_scan.launches
+    with pytest.raises(ValueError, match="ema_scan"):
+        ck.ema_scan(*_bad_ema_args(case))
+    assert ck.ema_scan.launches == launches
 
 
 @pytest.mark.parametrize("mode", MODES)

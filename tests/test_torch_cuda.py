@@ -31,7 +31,11 @@ a NaN sample and on non-contiguous blocks; ``saturator_step_fused``
 against its plain version and the saturator stage step; the chain
 kernel with per-clip constant rows (at the same batches) against its plain
 version run once per distinct row, and the serving pool on the card
-against the plain step with the same rows. The host entry points:
+against the plain step with the same rows. The finalize's EMA kernel
+(``ema_scan``, csrc/finalize.cu) runs against its plain walk at nb = 1, 2
+and 94 and B = 1, 33 and 8192 with NaN and +-inf inputs,
+``finalize_stream`` on the card against ``finalize_block``, and each chain
+stream or step call makes one EMA launch. The host entry points:
 ``PipelinedStream``'s kernel path at B = 1 against the plain step, one
 launch per tick; ``HostBridge`` on the saturator at 1x realtime or faster
 over 200 blocks; the CLI's corpus command against ``run_corpus_chain``.
@@ -652,6 +656,81 @@ def test_run_corpus_chain_always_on_card(cuda_device):
     assert diff <= 1e-5, diff
     assert float((ms_k[-1]["score"] - ms_n[-1]["score"]).abs().max()) <= 1e-3
     assert 0.0 <= float(agg["score"]["min"]) <= float(agg["score"]["max"]) <= 100.0
+
+
+# ---------------------------------------------------------------------------
+# The finalize's repetition/fatigue EMA walk (csrc/finalize.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 33, 8192])
+@pytest.mark.parametrize("nb", [1, 2, 94])
+def test_ema_scan_matches_plain(nb, batch, cuda_device):
+    """ema_scan on CUDA tensors: one launch of csrc/finalize.cu whose
+    density, risk and final EMA states are the plain walk's on the card, bit
+    for bit, NaN where it has NaN, with NaN and +-inf among the inputs and a
+    NaN in the seed state."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+    from ema_cases import assert_same_bits, ema_inputs
+
+    args = ema_inputs(nb, batch, cuda_device, seed=100 + nb)
+    before = ck.ema_scan.launches
+    got = ck.ema_scan(*args)
+    assert ck.ema_scan.launches == before + 1
+    want = ck.ema_scan_plain(*args)
+    torch.cuda.synchronize()
+    for name, g, w in zip(("density", "risk", "rep", "fat"), got, want,
+                          strict=True):
+        assert g.is_cuda, name
+        assert_same_bits(g, w, name)
+    assert bool(torch.isnan(got[0]).any())
+
+
+@pytest.mark.cuda
+def test_finalize_stream_on_card_matches_finalize_block(cuda_device):
+    """The stream's finalize on the card (the formulas once, the EMA in one
+    ema_scan launch) equals finalize_block applied block by block there,
+    bit for bit: every stage's metrics and the analyzer states."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    nb = 4
+    chain = _chain(0)
+    clips = _bursts(70, nb, cuda_device, batch=RAGGED[0])
+    st0 = chain.init_state((RAGGED[0],), cuda_device)
+    _out, _dsps, fin, acc, fit = ck._run_cuda(chain, st0, clips, False)
+    an = [st["analyzer"] for st in st0]
+    before = ck.ema_scan.launches
+    new_an, metrics = ck.finalize_stream(chain, an, fin, acc, fit)
+    assert ck.ema_scan.launches == before + 1
+    for blk in range(nb):
+        an, m_blk = ck.finalize_block(chain, an, fin[blk], acc[blk], fit[blk])
+        for m, mb in zip(metrics, m_blk, strict=True):
+            assert set(m) == set(mb)
+            for key, v in mb.items():
+                assert torch.equal(m[key][blk], v), (blk, key)
+    for a, b in zip(new_an, an, strict=True):
+        for key, v in b.items():
+            assert a[key].dtype == v.dtype and torch.equal(a[key], v), key
+
+
+@pytest.mark.cuda
+def test_chain_kernel_one_ema_launch_per_call(cuda_device):
+    """One chain_kernel_stream call over three blocks raises ema_scan's
+    count by exactly one (and the chain kernel's by three); one
+    chain_kernel_step (the nb = 1 finalize) by one."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    chain = _chain(2)
+    clips = _bursts(80, 3, cuda_device)
+    st0 = chain.init_state((B,), cuda_device)
+    ema, chain_launches = ck.ema_scan.launches, ck.chain_kernel_step.launches
+    ck.chain_kernel_stream(chain, st0, clips, metrics="final")
+    assert ck.ema_scan.launches == ema + 1
+    assert ck.chain_kernel_step.launches == chain_launches + 3
+    ck.chain_kernel_step(chain, st0, clips[..., :N])
+    torch.cuda.synchronize()
+    assert ck.ema_scan.launches == ema + 2
+    assert ck.chain_kernel_step.launches == chain_launches + 4
 
 
 # ---------------------------------------------------------------------------
