@@ -10,6 +10,16 @@ its synchronize. After the window the last batch of each corpus is held
 to the plain reference (benchmark/reference) on a sample of its clips
 drawn from the seed: their audio, where the mix returns it, and every
 stage's final-block metrics.
+
+The driver keeps the contract of benchmark/harness.py: ``run(cell)``;
+``tiny(traffic)``, the mix cut to 6 clips of 2 blocks, one corpus, 4 clips
+checked, which runs every path of ``run`` on the CPU in seconds; and
+``FAULTS``, the faults planted under the timed path, one of each kind:
+``state_unchanged`` (every block of the chain starts from the state the
+block before started from), ``half_batch`` (the second half of the clips
+left out, given the mean of the rest) and ``altered_answer`` (one sample
+of each clip's audio and each clip's final score changed where
+``run_corpus_chain`` returns them).
 """
 
 from __future__ import annotations
@@ -46,12 +56,16 @@ def _load_library():
 
 
 def materials_for(traffic, config, batch, seed, corpus):
-    """Each clip's texture material [B], or None for the configuration's."""
+    """Each clip's texture material [B], or None for the configuration's.
+    ``uniform``: every material an equal share (the first B % 5 one clip
+    more), in an order drawn from the seed: seeds differ in the order of
+    the work, not in how much of each material there is."""
     how = traffic["materials"]
     if how == "config":
         return None
     if how == "uniform":
-        return inputs.rng(seed, 1, corpus).integers(0, N_MATERIALS, batch)
+        return inputs.rng(seed, 1, corpus).permutation(
+            np.arange(batch) % N_MATERIALS)
     raise ValueError(f"traffic materials {how!r}: config or uniform")
 
 
@@ -229,3 +243,66 @@ def run(cell):
         "checked_clips": int(x.shape[0]), "window_s": window_s,
         "trace": trace,
     }
+
+
+def tiny(traffic):
+    """The mix cut to run every path of ``run`` on the CPU in seconds."""
+    return dict(traffic, batch=6, blocks=2, corpora=1, check_clips=4)
+
+
+# ------------------------------------------------ faults under the timed path
+
+def _state_unchanged(monkeypatch):
+    """Each block starts from the state the block before started from."""
+    from juicy_tpu_torch.kernels import chain_kernel as ck
+
+    plain = ck.chain_block_plain
+
+    def block(chain, dsps, lane_prev, blk):
+        out, _new, fin, acc = plain(chain, dsps, lane_prev, blk)
+        return out, dsps, fin, acc
+    monkeypatch.setattr(ck, "chain_block_plain", block)
+
+
+def _half_batch(monkeypatch):
+    """The second half of the clips left out, given the mean of the rest."""
+    from juicy_tpu_torch.parallel import corpus
+
+    real = corpus.run_corpus_chain
+
+    def half(chain, clips, **kw):
+        b = clips.shape[0] // 2
+        mats = kw.pop("materials", None)
+        out, ms, agg = real(chain, clips[:b], materials=None if mats is None
+                            else mats[:b], **kw)
+
+        def fill(v):
+            rest = v.mean(0, keepdim=True).expand(clips.shape[0] - b,
+                                                  *v.shape[1:])
+            return np.concatenate([v.numpy(), rest.numpy()])
+        import torch
+        out = None if out is None else torch.from_numpy(fill(out))
+        return out, [{k: torch.from_numpy(fill(v)) for k, v in m.items()}
+                     for m in ms], agg
+    monkeypatch.setattr(corpus, "run_corpus_chain", half)
+
+
+def _altered(monkeypatch):
+    """One answer altered where it is produced: one sample of each clip's
+    audio, and the final score of each clip."""
+    from juicy_tpu_torch.parallel import corpus
+
+    real = corpus.run_corpus_chain
+
+    def alter(chain, clips, **kw):
+        out, ms, agg = real(chain, clips, **kw)
+        if out is not None:
+            out[:, 0, 100] += 1e-3
+        ms[-1]["score"] = ms[-1]["score"] + 0.5
+        return out, ms, agg
+    monkeypatch.setattr(corpus, "run_corpus_chain", alter)
+
+
+#: {kind: plant(monkeypatch)}, each planted in the program for one run
+FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
+          "altered_answer": _altered}

@@ -6,7 +6,51 @@ Nothing here is keyed to one cell: a configuration is
 ``benchmark/configs/<config>.json`` (the file BENCHMARK.json names), a mix
 ``benchmark/traffic/<traffic>.json``, whose ``driver`` names
 ``benchmark/drivers/<driver>.py``, and a per-layer metric
-``benchmark/metrics/<metric>.py`` with ``read(trace)``.
+``benchmark/metrics/<metric>.py`` with ``read(trace)`` (a
+``tracing.Trace``, the program's spans attached; None where it finds
+nothing to read, and the line leaves the metric out).
+
+A driver holds three things:
+
+* ``run(cell) -> dict``: one run. `cell` is what ``resolve`` gives, with
+  ``seed``, ``seconds``, ``trace``, ``devices`` (one per chip the cell asks
+  for, ``cuda:0`` on; ``cpu`` in a rehearsal), ``t0`` (the process's start,
+  on ``time.perf_counter``) and ``parts`` (the set-up's parts timed before
+  the driver, in seconds). It makes its inputs from the seed, warms up
+  every shape the window uses, measures for ``seconds`` (a traced stretch
+  inside the window where ``trace`` is set: ``tracing.Stretch``), reads
+  the device's peak, then holds what the timed path produced to the plain
+  reference. It returns:
+
+  - ``setup_s``: seconds from ``t0`` to the window's start;
+  - ``setup_parts``: {part: seconds, or a flag} of the set-up;
+  - ``e2e``: {metric: value} for the cell's end-to-end metrics but
+    ``setup_s``; ``samples``: {metric: how many samples it was taken over};
+  - ``attempted``, ``failed``: the requests (batches, ticks) of the window
+    and those that failed;
+  - ``memory_peak_bytes``: the fullest device's peak over the window;
+  - ``readings``: {number: reading} of the numbers benchmark/compare.py
+    holds to their limits;
+  - ``trace``: the traced stretch's ``Trace``, or None;
+  - ``batch_ms``: [min, median, max] ms of the window's requests;
+    ``checked_clips``: how many answers (clips, streams) were compared;
+    ``reference_s``: the reference's seconds; ``window_s``: the window's;
+  - ``devices`` (optional): those it ran on, by default those given.
+
+* ``tiny(traffic) -> dict``: a copy of the mix cut so that ``run`` takes
+  every path of the driver on the CPU in seconds; benchmark/tests rehearse
+  every cell with it.
+
+* ``FAULTS``: {kind: plant(monkeypatch)}, faults planted in the program
+  under the driver's timed path through pytest's ``monkeypatch``, one
+  rehearsal each, which has to come out not correct. It holds one of each
+  kind in ``FAULT_KINDS``: ``state_unchanged`` (each step starts from the
+  state the step before started from), ``half_batch`` (part of the work,
+  clips or slots, left out and filled in) and ``altered_answer`` (one
+  answer changed where it is produced).
+
+A cell of a new driver, configuration or mix is so added with new files
+and new entries in BENCHMARK.json alone.
 """
 
 from __future__ import annotations
@@ -24,14 +68,16 @@ BENCH_DIR = Path(__file__).resolve().parent
 ROOT = BENCH_DIR.parent
 #: top-level module names that no run may load: JAX and the JAX package
 FORBIDDEN = ("jax", "jaxlib", "flax", "juicy_tpu")
+#: the kinds of fault each driver's FAULTS plants, one of each
+FAULT_KINDS = ("state_unchanged", "half_batch", "altered_answer")
 
 
-def load_spec(root: Path = ROOT) -> dict:
-    with open(root / "BENCHMARK.json") as f:
+def load_spec() -> dict:
+    with open(ROOT / "BENCHMARK.json") as f:
         return json.load(f)
 
 
-def resolve(spec: dict, workload: str, root: Path = ROOT) -> dict:
+def resolve(spec: dict, workload: str) -> dict:
     """A cell by name: its entry, configuration (the file its `configs`
     entry names), traffic mix and driver module name, and the metrics it
     reports (end-to-end, and per layer in a traced run)."""
@@ -40,7 +86,7 @@ def resolve(spec: dict, workload: str, root: Path = ROOT) -> dict:
         raise KeyError(f"no workload {workload!r}; have {sorted(cells)}")
     w = cells[workload]
     entry = {cfg["name"]: cfg for cfg in spec["configs"]}[w["config"]]
-    with open(root / entry["file"]) as f:
+    with open(ROOT / entry["file"]) as f:
         config = json.load(f)
     with open(BENCH_DIR / "traffic" / f"{w['traffic']}.json") as f:
         traffic = json.load(f)

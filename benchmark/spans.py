@@ -6,7 +6,8 @@ of a call (``juicy_tpu_torch/runtime/observe.py::span``): they reach the
 Chrome trace as ``user_annotation`` events on the same clock as the
 device's operations, and each operation's launch (the CUDA runtime or
 driver call with its correlation id) runs on the thread of the span it
-was issued in. ``attach(tr, events)`` gives a ``tracing.Trace`` both:
+was issued in. ``tracing.parse`` gives every ``tracing.Trace`` both
+(``tracing.attach``):
 
 * ``tr.spans``: every user annotation as (name, tid, start, end);
 * ``tr.launched``: for each entry of ``tr.device`` the (tid, ts) of the
@@ -20,42 +21,18 @@ is the time the phase adds to the batch: the host work that starts it
 while the device waits, and the gaps its own launches leave, are in; the
 wait behind operations queued before it is not.
 
-Where the trace was read without ``attach`` (or holds none of a span's
-instances) the readers here return None.
+Where the trace holds none of a span's instances (a program without the
+spans, or a route that does not open it) the readers here return None.
 """
 
 from __future__ import annotations
 
-from benchmark.tracing import DEVICE_CATS
+# re-exported for callers that attach the spans to a trace themselves
+# (tools/bench_spans.py); tracing.parse already does.
+from benchmark.tracing import attach  # noqa: F401
 
 #: the span of one call into the program on one device
 CALL = "juicy.corpus_chain"
-
-
-def attach(tr, events) -> None:
-    """Set `tr.spans` and `tr.launched` from the Chrome trace `events` that
-    `tr` was parsed from (``tracing.parse``: its device operations are the
-    events of DEVICE_CATS, in order)."""
-    calls, spans, launched = {}, [], []
-    for e in events:
-        if e.get("ph") != "X":
-            continue
-        cat = e.get("cat")
-        if cat == "user_annotation":
-            s = float(e["ts"])
-            spans.append((e.get("name", ""), e.get("tid"), s,
-                          s + float(e["dur"])))
-        elif cat in ("cuda_runtime", "cuda_driver"):
-            corr = (e.get("args") or {}).get("correlation")
-            if corr is not None:
-                calls[corr] = (e.get("tid"), float(e["ts"]))
-        elif cat in DEVICE_CATS:
-            launched.append((e.get("args") or {}).get("correlation"))
-    if len(launched) != len(tr.device):
-        raise ValueError(f"{len(launched)} device events against the "
-                         f"trace's {len(tr.device)}")
-    tr.spans = spans
-    tr.launched = [calls.get(c) for c in launched]
 
 
 def _chips(tr):
@@ -65,7 +42,7 @@ def _chips(tr):
 def instances(tr, name):
     """The instances of span `name` that open inside the stretch, as
     (tid, start, end)."""
-    return [(tid, s, e) for n, tid, s, e in getattr(tr, "spans", ())
+    return [(tid, s, e) for n, tid, s, e in tr.spans
             if n == name and tr.start <= s <= tr.end]
 
 

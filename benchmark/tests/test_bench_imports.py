@@ -17,7 +17,7 @@ import json, sys, time
 sys.path.insert(0, {root!r})
 from benchmark import harness
 cell = harness.resolve(harness.load_spec(), {cell!r})
-cell["traffic"].update(batch=6, blocks=2, corpora=1, check_clips=3)
+cell["traffic"] = harness.driver(cell["driver"]).tiny(cell["traffic"])
 res = harness.run_cell(cell, 2**31 + 3, 0.01, False, [{device!r}],
                        time.perf_counter())
 print(json.dumps({{"loaded": harness.forbidden_modules(),

@@ -1,12 +1,14 @@
 """The readers of the program's spans (benchmark/spans.py and the metrics
-that use it) on synthetic Chrome-trace events: a phase whose operations
-wait behind queued chain kernels starts its window where the last of them
-ends; a phase with host work before its first operation starts at its
-host start; a reader of a span that did not run reads None, as does every
-reader of a trace read without the spans; the call's idle is part of the
-device's; and the spans change nothing that the trace's other readers and
-its breakdown read, a chain-kernel launch inside the call's span
-included."""
+that use it) on synthetic Chrome-trace events, as ``tracing.parse`` gives
+them every traced run: a phase whose operations wait behind queued chain
+kernels starts its window where the last of them ends; a phase with host
+work before its first operation starts at its host start; a reader of a
+span that did not run reads None, as does every span reader of a trace
+without the program's spans; the call's idle is part of the device's; the
+spans change nothing that the trace's other readers and its breakdown
+read, a chain-kernel launch inside the call's span included; and the
+parse reads what the parse of the commit before the spans reached it
+read, with the spans read as ``spans.attach`` read them there."""
 
 import pytest
 
@@ -44,9 +46,7 @@ class Events:
 
 
 def _read(events, batches=1):
-    tr = tracing.parse(events, batches, [0.001] * batches, CELL)
-    spans.attach(tr, events)
-    return tr
+    return tracing.parse(events, batches, [0.001] * batches, CELL)
 
 
 def _queue():
@@ -85,7 +85,9 @@ def test_a_phase_with_host_work_first_starts_on_the_host():
     assert harness.reader("pack_ms")(tr) == pytest.approx(0.150)
 
 
-def test_windows_are_per_batch_and_summed_over_instances():
+def _ordered():
+    """Two batches of the sorted route: a gather with one launch, a
+    scatter with none."""
     ev = Events()
     for b in range(2):
         t = 1000.0 * b
@@ -94,7 +96,11 @@ def test_windows_are_per_batch_and_summed_over_instances():
         ev.span("juicy.order.gather", t + 20.0, t + 60.0)
         ev.launch(t + 50.0, t + 55.0, t + 80.0)
         ev.span("juicy.order.scatter", t + 700.0, t + 720.0)
-    tr = _read(ev.events, batches=2)
+    return ev.events
+
+
+def test_windows_are_per_batch_and_summed_over_instances():
+    tr = _read(_ordered(), batches=2)
     # gather 20 -> 80, scatter 700 -> 720, each batch
     assert harness.reader("material_order_ms")(tr) == pytest.approx(0.080)
     assert harness.reader("unpack_ms")(tr) is None
@@ -104,7 +110,7 @@ def test_spans_that_did_not_run_read_none():
     tr = _read(_queue())
     assert harness.reader("material_order_ms")(tr) is None
     assert harness.reader("unpack_ms")(tr) is None
-    bare = tracing.parse(_queue(), 1, [0.001], CELL)    # no attach
+    bare = _read(_without_program_spans(_queue()))
     for name in NEW:
         assert harness.reader(name)(bare) is None, name
 
@@ -126,8 +132,7 @@ def _without_program_spans(events):
 def test_spans_change_no_other_reading():
     events = _queue()
     with_spans = _read(events)
-    without = tracing.parse(_without_program_spans(events), 1, [0.001],
-                            CELL)
+    without = _read(_without_program_spans(events))
     for name in OLD:
         got, want = (harness.reader(name)(t) for t in (with_spans, without))
         assert got == want, name
@@ -151,3 +156,31 @@ def test_attach_matches_each_operation_to_its_launch():
                                             300.0, 320.0]
     with pytest.raises(ValueError):
         spans.attach(tr, events[:-1])
+
+
+#: each reader on each trace, read at the commit before ``tracing.parse``
+#: kept the spans: the old readers from its parse, the span readers after
+#: its ``spans.attach``
+PARENT = {
+    "queue": {"chain_roofline": 4.8192771084337345, "device_idle_pct": 54.0,
+              "launches_per_batch": 4.0, "dispatch_ms": 1.0,
+              "finalize_ms": 0.03, "pack_ms": 0.15, "unpack_ms": None,
+              "material_order_ms": None, "program_idle_pct": 16.0},
+    "ordered": {"chain_roofline": 80.0, "device_idle_pct": 97.5,
+                "launches_per_batch": 1.0, "dispatch_ms": 1.0,
+                "finalize_ms": None, "pack_ms": None, "unpack_ms": None,
+                "material_order_ms": 0.08,
+                "program_idle_pct": 86.49999999999999},
+}
+
+
+@pytest.mark.parametrize("case", sorted(PARENT))
+def test_parse_reads_what_the_parents_parse_and_attach_read(case):
+    events, batches = {"queue": (_queue(), 1),
+                       "ordered": (_ordered(), 2)}[case]
+    tr = _read(events, batches)
+    assert {name: harness.reader(name)(tr) for name in OLD + NEW} \
+        == PARENT[case]
+    again = _read(events, batches)
+    spans.attach(again, events)
+    assert (again.spans, again.launched) == (tr.spans, tr.launched)

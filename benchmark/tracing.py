@@ -6,7 +6,8 @@ and the host time of each call into the program), then ``read()`` parses
 the trace into what the per-layer metric readers take (``Trace``): the
 device's operations (kernels, copies, fills) with their times, which of
 them the port's own CUDA library launched, the host's launch calls and
-its operators, and the stretch's bounds.
+its operators, the stretch's bounds, and the program's spans with the
+launch behind each device operation (read by benchmark/spans.py).
 """
 
 from __future__ import annotations
@@ -27,7 +28,10 @@ class Trace:
     """What a metric reader sees. Times in microseconds on the trace's
     clock; `batches` the number of batches traced; `dispatch_s` the host
     time of each traced call into the program; `cell` the cell's context
-    (configuration, traffic, the work per block)."""
+    (configuration, traffic, the work per block); `spans` every user
+    annotation as (name, tid, start, end); `launched` for each entry of
+    `device` the (tid, ts) of the call that launched it, or None where the
+    trace holds none (``attach``)."""
     start: float
     end: float
     batches: int
@@ -37,6 +41,8 @@ class Trace:
     host_ops: list        # (name, start, end): the host's operators
     dispatch_s: list
     cell: dict = field(default_factory=dict)
+    spans: list = field(default_factory=list)
+    launched: list = field(default_factory=list)
 
     @property
     def seconds(self):
@@ -141,10 +147,11 @@ class _Cover:
 
 
 def parse(events, batches, dispatch_s, cell) -> Trace:
-    """A Trace from Chrome trace events. The stretch runs from the first
-    traced batch's start to the last one's end. A device operation counts
-    as the port's own when the launch that made it ran outside every
-    PyTorch operator on its thread (the library is called by ctypes)."""
+    """A Trace from Chrome trace events, the program's spans attached. The
+    stretch runs from the first traced batch's start to the last one's
+    end. A device operation counts as the port's own when the launch that
+    made it ran outside every PyTorch operator on its thread (the library
+    is called by ctypes)."""
     spans = [e for e in events if e.get("ph") == "X"
              and e.get("cat") == "user_annotation"
              and e.get("name") == "bench.batch"]
@@ -180,8 +187,40 @@ def parse(events, batches, dispatch_s, cell) -> Trace:
         chip.append(args.get("device", e.get("pid")))
     host = [(e.get("name", ""), float(e["ts"]),
              float(e["ts"]) + float(e["dur"])) for e in ops]
-    return Trace(start, end, batches, device, chip, launches, host,
-                 list(dispatch_s), dict(cell))
+    tr = Trace(start, end, batches, device, chip, launches, host,
+               list(dispatch_s), dict(cell))
+    attach(tr, events)
+    return tr
+
+
+def attach(tr, events) -> None:
+    """Set `tr.spans` and `tr.launched` from the Chrome trace `events` that
+    `tr` was parsed from (its device operations are the events of
+    DEVICE_CATS, in order). The program's spans
+    (``juicy_tpu_torch/runtime/observe.py::span``) reach the trace as
+    ``user_annotation`` events on the device's clock; each device
+    operation's launch (the CUDA runtime or driver call with its
+    correlation id) runs on the thread of the span it was issued in."""
+    calls, spans, launched = {}, [], []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat")
+        if cat == "user_annotation":
+            s = float(e["ts"])
+            spans.append((e.get("name", ""), e.get("tid"), s,
+                          s + float(e["dur"])))
+        elif cat in ("cuda_runtime", "cuda_driver"):
+            corr = (e.get("args") or {}).get("correlation")
+            if corr is not None:
+                calls[corr] = (e.get("tid"), float(e["ts"]))
+        elif cat in DEVICE_CATS:
+            launched.append((e.get("args") or {}).get("correlation"))
+    if len(launched) != len(tr.device):
+        raise ValueError(f"{len(launched)} device events against the "
+                         f"trace's {len(tr.device)}")
+    tr.spans = spans
+    tr.launched = [calls.get(c) for c in launched]
 
 
 def breakdown(tr: Trace, top: int = 10):
